@@ -1,0 +1,395 @@
+"""Volume NCC cost, volume rebase and geometric cost: kernels H2, H3, H4.
+
+PyTorch counterpart of ``apdmvs_tpu/ops/ncc_volume.py``. The reference
+package evaluates one function, the exact volume NCC of C candidate plane
+fields against one source view, through five TPU kernels that differ only in
+how they fetch (L1 band + L2 fixup, full-K, rebased, auto-centred sweep
+bands). Here one CUDA kernel, ``csrc/ncc_cost.cu`` (H2), serves all four
+public entry points; an optional rebased volume R (H3,
+``csrc/rebase_view.cu``) only changes which array a sample reads. The
+geometric-consistency cost over depth volumes is H4 (``csrc/geom_cost.cu``).
+
+Layout and padding follow the reference package so arrays compare index for
+index: volumes are [K, H+2*PAD_Y, W+2*PAD_X] over the padded pixel grid,
+H a multiple of NCC_TILE_H and W of TILE_W; planes are channel-first
+[C, 4, H, W]; per-view constants are packed by :func:`pack_consts` /
+:func:`pack_geom_consts`.
+
+Each wrapper runs its plain PyTorch version on CPU tensors and launches its
+kernel on CUDA tensors, and counts its launches in ``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from apdmvs_tpu_torch.ops import _build
+
+PAD_Y = 8
+PAD_X = 128
+TILE_W = 128
+NCC_TILE_H = 16
+J_REBASE = 12
+J2_REBASE = 2 * J_REBASE + 1  # 25: propagation / recost rebase window
+SWEEP_J2 = 49  # classify sweep rebase window
+COST_MAX = 2.0
+GEOM_COST_MAX = 3.0
+MIN_VAR = 1e-5
+
+# consts layout [1, 21]: fx, fy, cx, cy, u_min, du, M(9), b(3), src_w, src_h, row0
+_NCONST = 21
+# geom consts layout [1, 33]: fx, fy, cx, cy, u_min, du, M(9), b(3), A(9),
+# t'(3), src_w, src_h, row0
+_NGEOM = 33
+
+
+def _f32(v, device) -> torch.Tensor:
+    return torch.as_tensor(v, dtype=torch.float32, device=device).reshape(-1)
+
+
+def pack_consts(K0, M, b, u_min, du, src_w: int, src_h: int, row0=0.0) -> torch.Tensor:
+    dev = K0.device
+    return torch.cat([
+        torch.stack([K0[0, 0], K0[1, 1], K0[0, 2], K0[1, 2]]).float(),
+        _f32(u_min, dev), _f32(du, dev),
+        M.reshape(-1).float(), b.reshape(-1).float(),
+        _f32([src_w, src_h], dev), _f32(row0, dev),
+    ]).reshape(1, _NCONST)
+
+
+def pack_geom_consts(K0, M, b, A, t2, u_min, du, src_w: int, src_h: int, row0=0.0) -> torch.Tensor:
+    """A = K_ref R_ref R_src^T K_src^{-1}; t2 = K_ref R_ref (c_src - c_ref):
+    closed-form reprojection of (src pixel, src depth) into the ref view
+    (APD.cu:752-789)."""
+    dev = K0.device
+    return torch.cat([
+        torch.stack([K0[0, 0], K0[1, 1], K0[0, 2], K0[1, 2]]).float(),
+        _f32(u_min, dev), _f32(du, dev),
+        M.reshape(-1).float(), b.reshape(-1).float(),
+        A.reshape(-1).float(), t2.reshape(-1).float(),
+        _f32([src_w, src_h], dev), _f32(row0, dev),
+    ]).reshape(1, _NGEOM)
+
+
+def _offsets(radius: int, increment: int):
+    vals = list(range(-radius, radius + 1, increment))
+    return [(dx, dy) for dx in vals for dy in vals]
+
+
+def _slice_index(k: torch.Tensor, K: int) -> torch.Tensor:
+    """int64 index of a float slice coordinate; NaN -> 0 (its cost is NaN
+    through the interpolation weight either way)."""
+    return torch.nan_to_num(k, nan=0.0).to(torch.int64).clamp_(0, K - 1)
+
+
+def _check_common(E, ref_pad, planes, consts):
+    if planes.dim() != 4 or planes.shape[1] != 4 or planes.dtype != torch.float32:
+        raise ValueError("planes must be [C, 4, H, W] float32")
+    C, _, H, W = planes.shape
+    if H % NCC_TILE_H or W % TILE_W:
+        raise ValueError(f"planes grid {H}x{W} must be padded to ({NCC_TILE_H}, {TILE_W})")
+    PH, PW = H + 2 * PAD_Y, W + 2 * PAD_X
+    if E.dim() != 3 or tuple(E.shape[1:]) != (PH, PW):
+        raise ValueError(f"E must be [K, {PH}, {PW}], got {tuple(E.shape)}")
+    if tuple(ref_pad.shape) != (PH, PW) or ref_pad.dtype != torch.float32:
+        raise ValueError("ref_pad must be [PH, PW] float32")
+    if tuple(consts.shape) != (1, _NCONST) or consts.dtype != torch.float32:
+        raise ValueError("consts must be [1, 21] float32")
+    devs = {t.device for t in (E, ref_pad, planes, consts)}
+    if len(devs) != 1:
+        raise ValueError(f"inputs on several devices: {devs}")
+    return C, H, W
+
+
+# ---------------------------------------------------------------------------
+# H2: exact volume NCC
+# ---------------------------------------------------------------------------
+
+
+def ncc_volume_cost_ref(E_pad, ref_pad, planes, consts, num_slices: int,
+                        radius: int = 5, increment: int = 2) -> torch.Tensor:
+    """Plain version of H2 (the reference package's
+    ``ncc_volume_cost_view_ref``): [C, H, W] f32 costs, full-range
+    interpolation along K, same operation order as the kernel."""
+    C, _, H, W = planes.shape
+    K = E_pad.shape[0]
+    dev = planes.device
+    c = consts[0]
+    fx, fy, cx, cy, u_min, du = (c[m] for m in range(6))
+    M = c[6:15].reshape(3, 3)
+    b = c[15:18]
+    src_w, src_h, row0 = c[18], c[19], c[20]
+    ys, xs = torch.meshgrid(
+        torch.arange(H, dtype=torch.float32, device=dev),
+        torch.arange(W, dtype=torch.float32, device=dev), indexing="ij",
+    )
+    ys = ys + row0
+    n = planes[:, :3]
+    w = planes[:, 3]
+    z = torch.zeros((H, W), dtype=torch.float32, device=dev)
+    zc = torch.zeros((C, H, W), dtype=torch.float32, device=dev)
+    s_r, s_rr, s_s, s_ss, s_rs = z, z, zc, zc, zc
+    offsets = _offsets(radius, increment)
+    E32 = E_pad.to(torch.float32)  # widened once: bf16 -> f32 is exact
+    for dx, dy in offsets:
+        dirx = (xs + float(dx) - cx) / fx
+        diry = (ys + float(dy) - cy) / fy
+        u = -(n[:, 0] * dirx + n[:, 1] * diry + n[:, 2]) / w
+        k = torch.clamp((u - u_min) / du, 0.0, num_slices - 1.0)
+        E_sh = E32[:, PAD_Y + dy: PAD_Y + dy + H, PAD_X + dx: PAD_X + dx + W]
+        k0 = _slice_index(torch.floor(k), K)
+        k1 = torch.clamp(k0 + 1, max=K - 1)
+        f = k - k0.to(torch.float32)
+        e0 = torch.gather(E_sh, 0, k0)
+        e1 = torch.gather(E_sh, 0, k1)
+        sv = e0 * (1.0 - f) + e1 * f
+        rv = ref_pad[PAD_Y + dy: PAD_Y + dy + H, PAD_X + dx: PAD_X + dx + W]
+        s_r, s_rr = s_r + rv, s_rr + rv * rv
+        s_s, s_ss, s_rs = s_s + sv, s_ss + sv * sv, s_rs + rv * sv
+    inv = 1.0 / float(len(offsets))
+    mr, ms = s_r * inv, s_s * inv
+    var_r = s_rr * inv - mr * mr
+    var_s = s_ss * inv - ms * ms
+    cov = s_rs * inv - mr * ms
+    cost = torch.clamp(1.0 - cov * torch.rsqrt(torch.clamp(var_r * var_s, min=1e-30)),
+                       0.0, COST_MAX)
+    cost = torch.where((var_r < MIN_VAR) | (var_s < MIN_VAR), COST_MAX, cost)
+    dirx = (xs - cx) / fx
+    diry = (ys - cy) / fy
+    u_c = -(n[:, 0] * dirx + n[:, 1] * diry + n[:, 2]) / w
+    qx = M[0, 0] * dirx + M[0, 1] * diry + M[0, 2] + b[0] * u_c
+    qy = M[1, 0] * dirx + M[1, 1] * diry + M[1, 2] + b[1] * u_c
+    qz = M[2, 0] * dirx + M[2, 1] * diry + M[2, 2] + b[2] * u_c
+    oob = (qx / qz < 0) | (qx / qz >= src_w) | (qy / qz < 0) | (qy / qz >= src_h)
+    return torch.where(oob, COST_MAX, cost)
+
+
+_NCC_SIG = {
+    "ncc_cost_launch": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ]
+}
+
+
+def ncc_cost(E_pad, ref_pad, planes, consts, num_slices: int, radius: int = 5,
+             increment: int = 2, R_pad=None, bf_pad=None) -> torch.Tensor:
+    """Kernel H2 wrapper: exact NCC costs [C, H, W]. With ``R_pad``/``bf_pad``
+    (from :func:`build_rebased_view`) samples inside the rebase window read
+    R; the result is identical either way."""
+    C, H, W = _check_common(E_pad, ref_pad, planes, consts)
+    if E_pad.shape[0] != num_slices:
+        raise ValueError("E slice count != num_slices")
+    if (R_pad is None) != (bf_pad is None):
+        raise ValueError("R_pad and bf_pad go together")
+    if E_pad.device.type == "cpu":
+        return ncc_volume_cost_ref(E_pad, ref_pad, planes, consts, num_slices,
+                                   radius=radius, increment=increment)
+    if E_pad.device.type != "cuda":
+        raise ValueError(f"unsupported device {E_pad.device}")
+    if E_pad.dtype != torch.bfloat16:
+        raise ValueError("the CUDA NCC kernel reads a bf16 volume")
+    j2 = 0
+    if R_pad is not None:
+        if R_pad.dtype != torch.bfloat16 or tuple(R_pad.shape[1:]) != tuple(E_pad.shape[1:]):
+            raise ValueError("R_pad must be bf16 [j2, PH, PW]")
+        if tuple(bf_pad.shape) != tuple(E_pad.shape[1:]) or bf_pad.dtype != torch.float32:
+            raise ValueError("bf_pad must be f32 [PH, PW]")
+        j2 = R_pad.shape[0]
+        R_pad, bf_pad = R_pad.contiguous(), bf_pad.contiguous()
+    E_pad, ref_pad = E_pad.contiguous(), ref_pad.contiguous()
+    planes, consts = planes.contiguous(), consts.contiguous()
+    out = torch.empty((C, H, W), dtype=torch.float32, device=E_pad.device)
+    lib = _build.load("ncc_cost", _NCC_SIG)
+    err = lib.ncc_cost_launch(
+        E_pad.data_ptr(), ref_pad.data_ptr(), planes.data_ptr(), consts.data_ptr(),
+        C, H, W, num_slices, radius, increment,
+        None if R_pad is None else R_pad.data_ptr(),
+        None if bf_pad is None else bf_pad.data_ptr(), j2,
+        out.data_ptr(), torch.cuda.current_stream(E_pad.device).cuda_stream,
+    )
+    _build.check(err, "ncc_cost")
+    ncc_cost.launches += 1
+    return out
+
+
+ncc_cost.launches = 0
+
+
+def ncc_volume_cost_view(E_pad, ref_pad, planes, consts, num_slices: int,
+                         radius: int = 5, increment: int = 2) -> torch.Tensor:
+    """Exact NCC costs [C, H, W] from E (the reference package's banded
+    kernel + fixup entry)."""
+    return ncc_cost(E_pad, ref_pad, planes, consts, num_slices, radius, increment)
+
+
+def ncc_volume_cost_view_fullk(E_pad, ref_pad, planes, consts, num_slices: int,
+                               radius: int = 5, increment: int = 2) -> torch.Tensor:
+    """Exact NCC costs for structurally unbounded hypotheses (the random
+    refinement combos). Same kernel: there is no band to escape here."""
+    return ncc_cost(E_pad, ref_pad, planes, consts, num_slices, radius, increment)
+
+
+def ncc_rebased_cost_view(R_pad, bf_pad, E_pad, ref_pad, planes, consts,
+                          num_slices: int, radius: int = 5, increment: int = 2):
+    """Exact NCC costs fetched through the rebased volume (propagation,
+    combos 3-4, recost)."""
+    return ncc_cost(E_pad, ref_pad, planes, consts, num_slices, radius, increment,
+                    R_pad=R_pad, bf_pad=bf_pad)
+
+
+def ncc_rebased_sweep_cost_view(R_pad, bf_pad, E_pad, ref_pad, planes, consts,
+                                num_slices: int, radius: int = 5, increment: int = 2):
+    """Exact NCC costs of a classify sweep chunk, fetched through the volume
+    rebased on the chunk's mid step."""
+    return ncc_cost(E_pad, ref_pad, planes, consts, num_slices, radius, increment,
+                    R_pad=R_pad, bf_pad=bf_pad)
+
+
+# ---------------------------------------------------------------------------
+# H3: rebased volumes R[j, p] = E[b(p) + j - J, p]
+# ---------------------------------------------------------------------------
+
+
+def build_rebased_view_ref(E_pad, base_k, num_slices: int, j2: int = J2_REBASE):
+    """Plain version of H3 (the reference package's CPU branch of
+    ``build_rebased_view``): returns (R [j2, PH, PW] in E's dtype, bf [PH, PW]
+    f32). Round half to even (torch.round), then clip."""
+    J = (j2 - 1) // 2
+    b = torch.clamp(torch.round(base_k), J, num_slices - 1 - J)
+    bi = b.to(torch.int64)
+    R = torch.stack([
+        torch.gather(E_pad, 0, (bi + (j - J))[None])[0] for j in range(j2)
+    ]).to(E_pad.dtype)
+    return R, b.to(torch.float32)
+
+
+_REBASE_SIG = {
+    "rebase_view_launch": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+}
+
+
+def build_rebased_view(E_pad, base_k, num_slices: int, j2: int = J2_REBASE):
+    """Kernel H3 wrapper (for the TPU kernel ``_rebase_kernel``)."""
+    K, PH, PW = E_pad.shape
+    if K != num_slices or j2 > K or j2 % 2 != 1:
+        raise ValueError(f"bad rebase window j2={j2} for K={K}")
+    if tuple(base_k.shape) != (PH, PW) or base_k.dtype != torch.float32:
+        raise ValueError("base_k must be f32 [PH, PW]")
+    if base_k.device != E_pad.device:
+        raise ValueError("E_pad and base_k on different devices")
+    if E_pad.device.type == "cpu":
+        return build_rebased_view_ref(E_pad, base_k, num_slices, j2)
+    if E_pad.device.type != "cuda":
+        raise ValueError(f"unsupported device {E_pad.device}")
+    if E_pad.dtype != torch.bfloat16:
+        raise ValueError("the CUDA rebase kernel copies a bf16 volume")
+    E_pad, base_k = E_pad.contiguous(), base_k.contiguous()
+    R = torch.empty((j2, PH, PW), dtype=E_pad.dtype, device=E_pad.device)
+    bf = torch.empty((PH, PW), dtype=torch.float32, device=E_pad.device)
+    lib = _build.load("rebase_view", _REBASE_SIG)
+    err = lib.rebase_view_launch(
+        E_pad.data_ptr(), base_k.data_ptr(), K, PH, PW, j2, R.data_ptr(), bf.data_ptr(),
+        torch.cuda.current_stream(E_pad.device).cuda_stream,
+    )
+    _build.check(err, "rebase_view")
+    build_rebased_view.launches += 1
+    return R, bf
+
+
+build_rebased_view.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# H4: geometric-consistency cost over depth volumes
+# ---------------------------------------------------------------------------
+
+
+def geom_volume_cost_view_ref(D, planes, consts, num_slices: int) -> torch.Tensor:
+    """Plain version of H4 (the reference package's
+    ``geom_volume_cost_view_ref``): exact nearest-slice lookup."""
+    C, _, H, W = planes.shape
+    dev = planes.device
+    c = consts[0]
+    fx, fy, cx, cy, u_min, du = (c[m] for m in range(6))
+    M = c[6:15].reshape(3, 3)
+    b = c[15:18]
+    A = c[18:27].reshape(3, 3)
+    t2 = c[27:30]
+    src_w, src_h = c[30], c[31]
+    ys, xs = torch.meshgrid(
+        torch.arange(H, dtype=torch.float32, device=dev),
+        torch.arange(W, dtype=torch.float32, device=dev), indexing="ij",
+    )
+    ys = ys + c[32]
+    dirx = (xs - cx) / fx
+    diry = (ys - cy) / fy
+    out = []
+    for ci in range(C):
+        n = planes[ci]
+        u = -(n[0] * dirx + n[1] * diry + n[2]) / n[3]
+        k = torch.clamp((u - u_min) / du, 0.0, num_slices - 1.0)
+        ri = _slice_index(torch.round(k), D.shape[0])
+        sd = torch.gather(D, 0, ri[None])[0].to(torch.float32)
+        qx = M[0, 0] * dirx + M[0, 1] * diry + M[0, 2] + b[0] * u
+        qy = M[1, 0] * dirx + M[1, 1] * diry + M[1, 2] + b[1] * u
+        qz = M[2, 0] * dirx + M[2, 1] * diry + M[2, 2] + b[2] * u
+        px = qx / qz
+        py = qy / qz
+        oob = (px < 0.0) | (px >= src_w) | (py < 0.0) | (py >= src_h)
+        rx_ = A[0, 0] * px + A[0, 1] * py + A[0, 2]
+        ry_ = A[1, 0] * px + A[1, 1] * py + A[1, 2]
+        rz_ = A[2, 0] * px + A[2, 1] * py + A[2, 2]
+        bx = (sd * rx_ + t2[0]) / (sd * rz_ + t2[2])
+        by = (sd * ry_ + t2[1]) / (sd * rz_ + t2[2])
+        ex, ey = xs - bx, ys - by
+        err = torch.sqrt(ex * ex + ey * ey)
+        cost = torch.minimum(err, torch.tensor(GEOM_COST_MAX, device=dev))
+        out.append(torch.where((sd == 0.0) | oob, GEOM_COST_MAX, cost))
+    return torch.stack(out)
+
+
+_GEOM_SIG = {
+    "geom_cost_launch": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+}
+
+
+def geom_volume_cost_view(D, planes, consts, num_slices: int) -> torch.Tensor:
+    """Kernel H4 wrapper (for the TPU kernel ``_geom_kernel``): geometric
+    costs [C, H, W] from a source view's depth volume D [K, H, W]."""
+    if planes.dim() != 4 or planes.shape[1] != 4 or planes.dtype != torch.float32:
+        raise ValueError("planes must be [C, 4, H, W] float32")
+    C, _, H, W = planes.shape
+    if D.dim() != 3 or tuple(D.shape) != (num_slices, H, W) or D.dtype != torch.float32:
+        raise ValueError(f"D must be f32 [{num_slices}, {H}, {W}]")
+    if tuple(consts.shape) != (1, _NGEOM) or consts.dtype != torch.float32:
+        raise ValueError("geom consts must be [1, 33] float32")
+    if len({D.device, planes.device, consts.device}) != 1:
+        raise ValueError("inputs on several devices")
+    if D.device.type == "cpu":
+        return geom_volume_cost_view_ref(D, planes, consts, num_slices)
+    if D.device.type != "cuda":
+        raise ValueError(f"unsupported device {D.device}")
+    D, planes, consts = D.contiguous(), planes.contiguous(), consts.contiguous()
+    out = torch.empty((C, H, W), dtype=torch.float32, device=D.device)
+    lib = _build.load("geom_cost", _GEOM_SIG)
+    err = lib.geom_cost_launch(
+        D.data_ptr(), planes.data_ptr(), consts.data_ptr(), C, H, W, num_slices,
+        out.data_ptr(), torch.cuda.current_stream(D.device).cuda_stream,
+    )
+    _build.check(err, "geom_cost")
+    geom_volume_cost_view.launches += 1
+    return out
+
+
+geom_volume_cost_view.launches = 0

@@ -1,0 +1,459 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch / CUDA port (``apdmvs_tpu_torch``).
+
+Run from the repository root on a machine with one NVIDIA card:
+
+    python3 chip_smoke.py
+
+Phases, each printed on its own line; any failure raises (exit code != 0)
+and no ``ok`` line is printed:
+
+1. build: compiles every kernel source under ``apdmvs_tpu_torch/csrc`` (one
+   nvcc per source, all at once) and prints the build seconds and each
+   kernel's ``-Xptxas -v`` register / spill summary.
+2. kernels: holds each kernel (H1 build_volume, H2 ncc_cost, H3
+   rebase_view, H4 geom_cost) against its plain PyTorch version on the card
+   at the shapes of the main path (640x480, 5 views, K=160: C=9
+   propagation through R, C=3 straight from E, C=8 sweep chunk through a
+   j2=49 rebase, C=8 geometric), with the stated tolerance, and times
+   kernel, plain version and, where one PyTorch call computes the same
+   function, that call (CUDA events, warmed up).
+3. main path: renders the 5-view 640x480 ring scene, writes it as a
+   dataset, and runs ``scene.run_scene(device="cuda")``: one round of 4
+   passes x 5 views (FIRST_INIT + 3 geometric REFINE_ITER) and ETH fusion.
+   The launch counters are zeroed just before and read just after; every
+   kernel must have launched. Checks: median relative depth error on
+   interior pixels < 0.01 against ground truth, > 1000 fused points, median
+   point-to-plane distance < 0.05.
+
+Then it prints the ``kernels`` JSON line, the card's name and power limit,
+and last ``{"ok": true, "device": {...}}``. Without a CUDA card, or without
+the rest of the repository beside it, it fails before printing any result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and f32 rate
+# outside the tensor cores; the kernels do f32 arithmetic on CUDA cores.
+MEM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+# f32 operations counted per output of each kernel, read off its source:
+# H1 ~30 (warp, divide, clamp, bilinear); H2 30 per window sample (two pixel
+# directions, plane depth, slice index, lerp, five sums) + 40 (epilogue and
+# centre warp); H4 ~60 (depth, slice, warp, reprojection, error).
+OPS_H1, OPS_H2_SAMPLE, OPS_H2_OUT, OPS_H4 = 30, 30, 40, 60
+
+W, H, V, K = 640, 480, 5, 160
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def bound(nbytes: float, ops: float):
+    t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def time_ms(fn, reps: int, warmup: int = 2) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bf16_ulps(a, b):
+    """Distance between two bf16 tensors in units in the last place."""
+    import torch
+
+    ia = a.view(torch.int16).to(torch.int32)
+    ib = b.view(torch.int16).to(torch.int32)
+    # map sign-magnitude onto a monotone integer line
+    ia = torch.where(ia < 0, -32768 - ia, ia)
+    ib = torch.where(ib < 0, -32768 - ib, ib)
+    return (ia - ib).abs()
+
+
+def ncc_touched(planes_cf, consts, num_slices, PH, PW, radius=5, increment=2):
+    """Distinct elements (slice, padded pixel) of E that H2 must read for
+    these fields: the two K-neighbours of each window sample, with the
+    plain version's slice arithmetic. The data decides how many."""
+    import torch
+
+    from apdmvs_tpu_torch.ops import ncc_volume as nv
+
+    C, _, Hq, Wq = planes_cf.shape
+    dev = planes_cf.device
+    c = consts[0]
+    fx, fy, cx, cy, u_min, du = (c[m] for m in range(6))
+    yi, xi = torch.meshgrid(torch.arange(Hq, device=dev), torch.arange(Wq, device=dev),
+                            indexing="ij")
+    ys, xs = yi.float() + c[20], xi.float()
+    n, w = planes_cf[:, :3], planes_cf[:, 3]
+    seen = torch.zeros(num_slices * PH * PW, dtype=torch.bool, device=dev)
+    for dx, dy in nv._offsets(radius, increment):
+        dirx = (xs + float(dx) - cx) / fx
+        diry = (ys + float(dy) - cy) / fy
+        u = -(n[:, 0] * dirx + n[:, 1] * diry + n[:, 2]) / w
+        k = torch.clamp((u - u_min) / du, 0.0, num_slices - 1.0)
+        k0 = nv._slice_index(torch.floor(k), num_slices)
+        pix = (yi + nv.PAD_Y + dy) * PW + (xi + nv.PAD_X + dx)
+        seen[k0 * (PH * PW) + pix] = True
+        seen[torch.clamp(k0 + 1, max=num_slices - 1) * (PH * PW) + pix] = True
+    return int(seen.sum())
+
+
+def geom_touched(planes_cf, gconsts, num_slices):
+    """Distinct elements of the depth volume D that H4 must read: the
+    nearest slice of each field at each pixel."""
+    import torch
+
+    from apdmvs_tpu_torch.ops import ncc_volume as nv
+
+    C, _, Hq, Wq = planes_cf.shape
+    dev = planes_cf.device
+    c = gconsts[0]
+    fx, fy, cx, cy, u_min, du = (c[m] for m in range(6))
+    ys, xs = torch.meshgrid(torch.arange(Hq, device=dev, dtype=torch.float32),
+                            torch.arange(Wq, device=dev, dtype=torch.float32), indexing="ij")
+    dirx = (xs - cx) / fx
+    diry = (ys + c[32] - cy) / fy
+    n = planes_cf
+    u = -(n[:, 0] * dirx + n[:, 1] * diry + n[:, 2]) / n[:, 3]
+    k = nv._slice_index(torch.round(torch.clamp((u - u_min) / du, 0.0, num_slices - 1.0)),
+                        num_slices)
+    seen = torch.zeros(num_slices * Hq * Wq, dtype=torch.bool, device=dev)
+    seen[k * (Hq * Wq) + torch.arange(Hq * Wq, device=dev).reshape(Hq, Wq)] = True
+    return int(seen.sum())
+
+
+def phase_build():
+    from apdmvs_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    results = _build.build_all()
+    log(f"build: {len(results)} kernel libraries compiled in "
+        f"{time.perf_counter() - t0:.2f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
+    for name, (secs, out) in results.items():
+        regs = [ln.strip() for ln in out.splitlines()
+                if re.search(r"registers|spill", ln)]
+        log(f"build: {name} {secs:.2f} s; ptxas: " + " | ".join(regs))
+
+
+def make_inputs(dev):
+    """The main path's inputs at 640x480x5 views: images, cameras, volumes
+    and plane fields built from the ground truth with perturbations."""
+    import numpy as np
+    import torch
+
+    from apdmvs_tpu_torch import geometry, ncc
+    from apdmvs_tpu_torch.datasets import synthetic
+
+    cams_s, planes_s = synthetic.make_ring_scene(num_views=V, width=W, height=H)
+    images, depths, normals = synthetic.render_scene(cams_s, planes_s)
+    cams = geometry.make_cameras(
+        np.stack([c.K for c in cams_s]), np.stack([c.R for c in cams_s]),
+        np.stack([c.t for c in cams_s]), np.full(V, 1.2), np.full(V, 9.6), device=dev,
+    )
+    return cams_s, planes_s, images, depths, normals, cams
+
+
+def phase_kernels(dev, inputs):
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from apdmvs_tpu_torch import geometry, ncc
+    from apdmvs_tpu_torch.ops import ncc_volume as nv, volume as vol
+
+    _, _, images, depths, normals, cams = inputs
+    rs = np.random.RandomState(0)
+    imgs = torch.as_tensor(images, device=dev)
+    dm = torch.as_tensor(depths, device=dev)
+    wc = geometry.warp_constants(cams)
+    u_min, du = vol.inv_depth_grid(1.2, 9.6, K)
+    Hp, Wp = ncc._ceil_to(H, nv.NCC_TILE_H), ncc._ceil_to(W, nv.TILE_W)
+    PH, PW = Hp + 2 * nv.PAD_Y, Wp + 2 * nv.PAD_X
+    rows = []
+
+    # ---- H1 build_volume: bilinear bf16 (image volume) + trunc f32 (depth volume)
+    args = (wc.M[1], wc.b[1], cams.K[0], Hp, Wp, u_min, du, K)
+    E = vol.build_volume(imgs[1], *args, pad_y=nv.PAD_Y, pad_x=nv.PAD_X)
+    E_ref = vol.build_volume_padded(imgs[1], *args, pad_y=nv.PAD_Y, pad_x=nv.PAD_X)
+    ulps = int(bf16_ulps(E, E_ref).max())
+    D = vol.build_volume(dm[1], *args, pad_y=0, pad_x=0, dtype=torch.float32, trunc=True)
+    D_ref = vol.build_volume_padded(dm[1], *args, pad_y=0, pad_x=0,
+                                    dtype=torch.float32, trunc=True)
+    eq_trunc = float((D == D_ref).float().mean())
+    err_h1 = float((E.float() - E_ref.float()).abs().max())
+    ok = ulps <= 1 and eq_trunc >= 0.999
+    log(f"kernel H1 build_volume: bilinear max {ulps} bf16 ulp (tol 1), max abs {err_h1:.3e}; "
+        f"trunc {100 * eq_trunc:.4f}% equal (tol >= 99.9%) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("H1 disagrees with its plain version")
+    ms = time_ms(lambda: vol.build_volume(imgs[1], *args, pad_y=nv.PAD_Y, pad_x=nv.PAD_X), 10)
+    plain = time_ms(lambda: vol.build_volume_padded(imgs[1], *args, pad_y=nv.PAD_Y,
+                                                    pad_x=nv.PAD_X), 2, 1)
+    # library yardstick: grid_sample (bilinear, border) on the precomputed
+    # sampling grid of all K slices
+    ys, xs = torch.meshgrid(torch.arange(PH, device=dev, dtype=torch.float32) - nv.PAD_Y,
+                            torch.arange(PW, device=dev, dtype=torch.float32) - nv.PAD_X,
+                            indexing="ij")
+    Md = geometry.mat3_vec(wc.M[1], geometry.pixel_dirs(cams.K[0], xs, ys))
+    u = u_min.to(dev) + torch.arange(K, device=dev, dtype=torch.float32)[:, None, None] * du.to(dev)
+    q = Md[None] + wc.b[1] * u[..., None]
+    gx = (q[..., 0] / q[..., 2]) / (W - 1) * 2 - 1
+    gy = (q[..., 1] / q[..., 2]) / (H - 1) * 2 - 1
+    grid = torch.stack([gx, gy], -1).reshape(1, K * PH, PW, 2)
+    lib = time_ms(lambda: F.grid_sample(imgs[1][None, None], grid, mode="bilinear",
+                                        padding_mode="border", align_corners=True), 10)
+    b_ms, b_by = bound(H * W * 4 + K * PH * PW * 2, K * PH * PW * OPS_H1)
+    rows.append(dict(name="build_volume", route="cuda",
+                     source="apdmvs_tpu_torch/csrc/build_volume.cu",
+                     replaces="apdmvs_tpu/ops/volume.py:123", max_abs_err=err_h1, ms=ms,
+                     plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+    log(f"kernel H1 build_volume: {ms:.3f} ms (plain {plain:.3f}, grid_sample {lib:.3f}, "
+        f"bound {b_ms:.4f} by {b_by}) at K={K} {PH}x{PW} bf16")
+
+    # ---- H3 rebase_view around the ground-truth depth of view 0, j2=25 and 49
+    vs = ncc.VolumeSet(E=E[None], consts=nv.pack_consts(cams.K[0], wc.M[1], wc.b[1], u_min,
+                                                         du, W, H)[None],
+                       ref_pad=ncc._edge_pad(imgs[0], nv.PAD_Y, nv.PAD_Y + Hp - H,
+                                             nv.PAD_X, nv.PAD_X + Wp - W))
+    base_k = ncc._base_slice_map(vs, dm[0])
+    err_h3 = 0.0
+    for j2 in (nv.J2_REBASE, nv.SWEEP_J2):
+        R, bf = nv.build_rebased_view(E, base_k, K, j2=j2)
+        R_ref, bf_ref = nv.build_rebased_view_ref(E, base_k, K, j2=j2)
+        exact = torch.equal(R.view(torch.int16), R_ref.view(torch.int16)) and torch.equal(bf, bf_ref)
+        err = max(float((R.float() - R_ref.float()).abs().max()),
+                  float((bf - bf_ref).abs().max()))
+        err_h3 = max(err_h3, err)
+        log(f"kernel H3 rebase_view j2={j2}: bit-exact {exact}, max abs {err:.3e} "
+            "(tol: bit-exact)")
+        if not exact:
+            raise AssertionError("H3 disagrees with its plain version")
+    R25, bf25 = nv.build_rebased_view(E, base_k, K)
+    ms = time_ms(lambda: nv.build_rebased_view(E, base_k, K), 20)
+    plain = time_ms(lambda: nv.build_rebased_view_ref(E, base_k, K), 3, 1)
+    J = (nv.J2_REBASE - 1) // 2
+    idx = (torch.clamp(torch.round(base_k), J, K - 1 - J).long()[None]
+           + torch.arange(nv.J2_REBASE, device=dev)[:, None, None] - J)
+    lib = time_ms(lambda: torch.gather(E, 0, idx), 20)
+    b_ms, b_by = bound(2 * nv.J2_REBASE * PH * PW * 2 + 2 * PH * PW * 4, 0.0)
+    rows.append(dict(name="rebase_view", route="cuda", source="apdmvs_tpu_torch/csrc/rebase_view.cu",
+                     replaces="apdmvs_tpu/ops/ncc_volume.py:1029", max_abs_err=err_h3, ms=ms,
+                     plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+    log(f"kernel H3 rebase_view: {ms:.3f} ms (plain {plain:.3f}, torch.gather {lib:.3f}, "
+        f"bound {b_ms:.4f} by {b_by}) at j2=25 {PH}x{PW}")
+
+    # ---- H2 ncc_cost at the main path's batch shapes
+    x, y = geometry.pixel_grid(H, W, dev)
+    dirs = geometry.pixel_dirs(cams.K[0], x, y)
+    n_cam = geometry.normal_world_to_cam(cams.R[0], torch.as_tensor(normals[0], device=dev))
+    gt = torch.where(dm[0] > 0, dm[0], torch.full_like(dm[0], 4.0))
+
+    def plane_field(depth, normal):
+        w = geometry.dist_to_origin(cams.K[0], x, y, depth, normal)
+        return torch.cat([normal, w[..., None]], -1)
+
+    def noisy(scale, seed):
+        r = np.random.RandomState(seed)
+        d = gt * torch.as_tensor(1 + scale * r.randn(H, W), device=dev, dtype=torch.float32)
+        n = n_cam + torch.as_tensor(0.05 * r.randn(H, W, 3), device=dev, dtype=torch.float32)
+        return plane_field(d, n / torch.linalg.vector_norm(n, dim=-1, keepdim=True))
+
+    rand_depth = torch.as_tensor(rs.uniform(1.2, 9.6, (3, H, W)), device=dev, dtype=torch.float32)
+    cases = {
+        "C9_propagation_R25": (torch.stack([noisy(0.01, s) for s in range(9)]), (R25, bf25)),
+        "C3_fullk_E": (torch.stack([plane_field(rand_depth[i], n_cam) for i in range(3)]), None),
+        "C8_sweep_R49": (torch.stack([plane_field(gt * (1 + 0.004 * (s - 4)), n_cam)
+                                      for s in range(8)]), "sweep"),
+    }
+    def h2_bound(planes_cf, consts):
+        """The NCC function's own traffic: the elements of E that these
+        fields' windows touch (R and bf only copy E), the reference image
+        under the windows, planes in, costs out; or its f32 operations."""
+        C = planes_cf.shape[0]
+        touched = ncc_touched(planes_cf, consts, K, PH, PW)
+        nbytes = (touched * 2 + (Hp + 10) * (Wp + 10) * 4 + C * 4 * Hp * Wp * 4
+                  + C * Hp * Wp * 4)
+        return bound(nbytes, C * Hp * Wp * (36 * OPS_H2_SAMPLE + OPS_H2_OUT)), touched
+
+    err_h2, t_h2 = 0.0, {}
+    consts = vs.consts[0]
+    for name, (pl, via) in cases.items():
+        planes_cf = ncc._pad_planes_cf(pl, Hp, Wp)
+        if via == "sweep":
+            base = ncc._base_slice_map(vs, gt)
+            via = nv.build_rebased_view(E, base, K, j2=nv.SWEEP_J2)
+        R_, bf_ = via if via is not None else (None, None)
+        out = nv.ncc_cost(E, vs.ref_pad, planes_cf, consts, K, R_pad=R_, bf_pad=bf_)
+        ref = nv.ncc_volume_cost_ref(E, vs.ref_pad, planes_cf, consts, K)
+        fin = bool(torch.isfinite(ref).all())
+        err = float((out - ref).abs().max())
+        err_h2 = max(err_h2, err)
+        if not err < 1e-4:
+            raise AssertionError(f"H2 disagrees with its plain version ({name}: {err:.3e})")
+        ms = time_ms(lambda: nv.ncc_cost(E, vs.ref_pad, planes_cf, consts, K, R_pad=R_,
+                                         bf_pad=bf_), 10)
+        (b_ms, b_by), touched = h2_bound(planes_cf, consts)
+        log(f"kernel H2 ncc_cost {name}: max abs {err:.3e} (tol 1e-4), plain finite {fin}; "
+            f"{ms:.3f} ms (bound {b_ms:.4f} by {b_by}; E elements touched {touched}, "
+            f"{touched / (PH * PW):.2f} slices a pixel)")
+        t_h2[name] = (planes_cf, ms, b_ms, b_by)
+    planes_cf, ms, b_ms, b_by = t_h2["C9_propagation_R25"]
+    plain = time_ms(lambda: nv.ncc_volume_cost_ref(E, vs.ref_pad, planes_cf, consts, K), 2, 1)
+    ms_e = time_ms(lambda: nv.ncc_cost(E, vs.ref_pad, planes_cf, consts, K), 10)
+    rows.append(dict(name="ncc_cost", route="cuda", source="apdmvs_tpu_torch/csrc/ncc_cost.cu",
+                     replaces="apdmvs_tpu/ops/ncc_volume.py:353", max_abs_err=err_h2, ms=ms,
+                     plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    log(f"kernel H2 ncc_cost: {ms:.3f} ms at C=9 through R (from E alone {ms_e:.3f}; plain "
+        f"{plain:.3f}; bound {b_ms:.4f} by {b_by}); no single PyTorch call computes it")
+
+    # ---- H4 geom_cost, C=8 sweep planes over the trunc depth volume
+    gconsts = ncc.add_depth_volumes(vs, dm[:2], cams, 1.2, 9.6).geom_consts[0]
+    planes_cf = ncc._pad_planes_cf(cases["C8_sweep_R49"][0], Hp, Wp)[:, :, :Hp, :Wp]
+    Dp = vol.build_volume(dm[1], wc.M[1], wc.b[1], cams.K[0], Hp, Wp, u_min, du, K,
+                          pad_y=0, pad_x=0, dtype=torch.float32, trunc=True)
+    out = nv.geom_volume_cost_view(Dp, planes_cf, gconsts, K)
+    ref = nv.geom_volume_cost_view_ref(Dp, planes_cf, gconsts, K)
+    err = float((out - ref).abs().max())
+    log(f"kernel H4 geom_cost C=8: max abs {err:.3e} (tol 1e-4)")
+    if not err < 1e-4:
+        raise AssertionError("H4 disagrees with its plain version")
+    C = planes_cf.shape[0]
+    ms = time_ms(lambda: nv.geom_volume_cost_view(Dp, planes_cf, gconsts, K), 20)
+    plain = time_ms(lambda: nv.geom_volume_cost_view_ref(Dp, planes_cf, gconsts, K), 3, 1)
+    touched = geom_touched(planes_cf, gconsts, K)
+    b_ms, b_by = bound(touched * 4 + C * Hp * Wp * (16 + 4), C * Hp * Wp * OPS_H4)
+    rows.append(dict(name="geom_cost", route="cuda", source="apdmvs_tpu_torch/csrc/geom_cost.cu",
+                     replaces="apdmvs_tpu/ops/ncc_volume.py:1370", max_abs_err=err, ms=ms,
+                     plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    log(f"kernel H4 geom_cost: {ms:.3f} ms (plain {plain:.3f}, bound {b_ms:.4f} by {b_by}; "
+        f"D elements touched {touched}) at C=8 {Hp}x{Wp}")
+    torch.cuda.synchronize()
+    return rows
+
+
+def _counters():
+    from apdmvs_tpu_torch.ops import ncc_volume as nv, volume as vol
+
+    return {"build_volume": vol.build_volume, "ncc_cost": nv.ncc_cost,
+            "rebase_view": nv.build_rebased_view, "geom_cost": nv.geom_volume_cost_view}
+
+
+def phase_main_path(dev, inputs):
+    import numpy as np
+    import torch
+
+    from apdmvs_tpu_torch import scene
+    from apdmvs_tpu_torch.datasets import synthetic
+    from apdmvs_tpu_torch.io import formats
+
+    cams_s, planes_s, images, depths, _, _ = inputs
+    folder = os.path.join(ROOT, "_smoke_scene")
+    shutil.rmtree(folder, ignore_errors=True)
+    try:
+        synthetic.write_mvsnet_dataset(folder, cams_s, planes_s, depth_ranges=(2.0, 8.0),
+                                       images=images)
+        counters = _counters()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        run = scene.run_scene(folder, device="cuda", verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        per_pass = {}
+        for spec, problem, stats in run.passes:
+            per_pass.setdefault(spec.pass_index, []).append(stats.seconds * 1e3)
+        for p, ts in per_pass.items():
+            log(f"main path pass {p}: " + ", ".join(f"{t:.1f}" for t in ts)
+                + f" ms per view (mean {np.mean(ts):.1f} ms)")
+        log(f"main path: {len(run.passes)} view-passes + fusion in {wall:.2f} s; launches "
+            + json.dumps(launches))
+        missing = [n for n, c in launches.items() if c == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched on the main path: {missing}")
+
+        errs = []
+        for v in range(V):
+            d = formats.read_bin_mat(os.path.join(folder, "APD", formats.to_format_index(v),
+                                                  "depths.dmb"))
+            if d.shape != (H, W) or not np.isfinite(d).all():
+                raise AssertionError(f"view {v}: depth map {d.shape} not finite/expected shape")
+            gt = depths[v]
+            m = np.zeros_like(gt, bool)
+            m[10:-10, 10:-10] = gt[10:-10, 10:-10] > 0
+            errs.append(float(np.median(np.abs(d - gt)[m] / gt[m])))
+        log("main path: median relative depth error per view "
+            + ", ".join(f"{e:.5f}" for e in errs) + " (tol < 0.01 each)")
+        if not max(errs) < 0.01:
+            raise AssertionError("depth error above 0.01")
+        coords, _ = formats.read_point_cloud(run.ply)
+        dist = np.full(coords.shape[0], np.inf)
+        for pl in planes_s:
+            dist = np.minimum(dist, np.abs((coords.astype(np.float64) - pl.p0) @ pl.n))
+        med = float(np.median(dist)) if len(coords) else float("inf")
+        log(f"main path: fused {len(coords)} points (tol > 1000), median plane distance "
+            f"{med:.5f} (tol < 0.05)")
+        if not (len(coords) > 1000 and med < 0.05 and np.isfinite(coords).all()):
+            raise AssertionError("fused cloud fails the thresholds")
+        return launches, per_pass
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
+              file=sys.stderr)
+        return 2
+    import apdmvs_tpu_torch  # noqa: F401  (fails outside the repository)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    phase_build()
+    inputs = make_inputs(dev)
+    rows = phase_kernels(dev, inputs)
+    launches, _ = phase_main_path(dev, inputs)
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+    keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms"]
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
