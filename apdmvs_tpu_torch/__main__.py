@@ -22,6 +22,9 @@ def main(argv=None) -> None:
     ap.add_argument("--delete-intermediates", action="store_true",
                     help="remove per-view result dirs after fusion (main.cpp:220-230)")
     ap.add_argument("--max-rounds", type=int, default=None, help="cap pyramid rounds")
+    ap.add_argument("--min-rounds", type=int, default=None,
+                    help="force at least this many pyramid rounds (rounds after the first "
+                    "run the APD weak machinery) even below the 1000 px trigger")
     ap.add_argument("--allow-missing-prior", action="store_true",
                     help="re-initialise a view whose prior state files are missing "
                     "instead of failing (the reference exits, APD.cpp:514-518)")
@@ -42,6 +45,7 @@ def main(argv=None) -> None:
         show_medium_result=args.show_medium_result,
         keep_intermediates=not args.delete_intermediates,
         max_rounds=args.max_rounds,
+        min_rounds=args.min_rounds,
         camera_model=args.camera_model,
         allow_missing_prior=args.allow_missing_prior,
         volume_cache_gb=args.volume_cache_gb,

@@ -20,7 +20,9 @@
 // variance is < 1e-5 or the centre warp leaves the source image. The
 // operation order is that of the plain version (ops/ncc_volume.py::
 // ncc_volume_cost_ref), with every product and sum separately rounded
-// (built with --fmad=false).
+// (built with --fmad=false), except the two variances and the covariance:
+// each is one explicit fused multiply-add, as the reference computes them
+// (ops/ncc_volume.py::ncc_moments says why it matters).
 //
 // Optional (R, bf) input: R[j, p] = E[b(p) + j - J, p] with b = bf(p). A
 // sample whose slice pair lies in [b - J, b + J] reads R, otherwise E. The
@@ -123,9 +125,9 @@ __global__ void ncc_cost_kernel(const __nv_bfloat16* __restrict__ E,
   const float inv = (float)(1.0 / (double)S);
   const float mr = s_r * inv;
   const float ms = s_s * inv;
-  const float var_r = s_rr * inv - mr * mr;
-  const float var_s = s_ss * inv - ms * ms;
-  const float cov = s_rs * inv - mr * ms;
+  const float var_r = __fmaf_rn(s_rr, inv, -(mr * mr));
+  const float var_s = __fmaf_rn(s_ss, inv, -(ms * ms));
+  const float cov = __fmaf_rn(s_rs, inv, -(mr * ms));
   const float prod = var_r * var_s;
   const float denom = isnan(prod) ? prod : fmaxf(prod, 1e-30f);
   const float raw = 1.0f - cov * (1.0f / sqrtf(denom));

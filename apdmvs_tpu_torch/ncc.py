@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from apdmvs_tpu_torch import geometry
 from apdmvs_tpu_torch.geometry import Cameras, WarpConstants
-from apdmvs_tpu_torch.ops import ncc_volume, volume as vol
+from apdmvs_tpu_torch.ops import cost_volume, ncc_volume, volume as vol
 
 COST_MAX = ncc_volume.COST_MAX
 GEOM_COST_MAX = ncc_volume.GEOM_COST_MAX
@@ -37,6 +37,9 @@ class VolumeSet(NamedTuple):
     ref_pad: [Hp+2*PAD_Y, Wp+2*PAD_X] f32 edge-padded reference image.
     D / geom_consts: source-view depth volumes [V-1, K, Hp, Wp] f32 and
       their reprojection constants, for geometric passes.
+    C36 / C9: NCC cost volumes [V-1, K, PH, PW] bf16 of the weak machinery
+      (ops/cost_volume.py): the strong window (radius 5, step 2) and the
+      anchor window (radius 5, step 5), built for rounds that use APD.
     R / base_k: volumes rebased on the current depth estimate
       (ncc_volume.build_rebased_view), rebuilt once per iteration.
     """
@@ -46,6 +49,8 @@ class VolumeSet(NamedTuple):
     ref_pad: torch.Tensor
     D: Optional[torch.Tensor] = None
     geom_consts: Optional[torch.Tensor] = None
+    C36: Optional[torch.Tensor] = None
+    C9: Optional[torch.Tensor] = None
     R: Optional[torch.Tensor] = None
     base_k: Optional[torch.Tensor] = None
 
@@ -111,11 +116,12 @@ def _edge_pad(img: torch.Tensor, top: int, bottom: int, left: int, right: int) -
 
 
 def build_image_volume_set(images: torch.Tensor, cams: Cameras, depth_min, depth_max,
-                           num_slices: int = 160) -> VolumeSet:
-    """Image volumes E (one H1 launch per source view), consts and the padded
-    reference image. They depend only on (images, cameras, depth grid), so
-    the scene runner builds them once per (problem, scale) and reuses them
-    across the round's passes."""
+                           num_slices: int = 160, weak_cost_volumes: bool = True) -> VolumeSet:
+    """Image volumes E (one H1 launch per source view), consts, the padded
+    reference image and, with ``weak_cost_volumes``, the cost volumes C36
+    and C9 of the weak machinery. They depend only on (images, cameras,
+    depth grid), so the scene runner builds them once per (problem, scale)
+    and reuses them across the round's passes."""
     V, H, W = images.shape
     Hp = _ceil_to(H, ncc_volume.NCC_TILE_H)
     Wp = _ceil_to(W, ncc_volume.TILE_W)
@@ -132,7 +138,12 @@ def build_image_volume_set(images: torch.Tensor, cams: Cameras, depth_min, depth
         images[0].float(), ncc_volume.PAD_Y, ncc_volume.PAD_Y + Hp - H,
         ncc_volume.PAD_X, ncc_volume.PAD_X + Wp - W,
     )
-    return VolumeSet(E=torch.stack(Es), consts=torch.stack(consts), ref_pad=ref_pad)
+    C36 = C9 = None
+    if weak_cost_volumes:
+        C36 = torch.stack([cost_volume.build_cost_volume(E, ref_pad, 5, 2) for E in Es])
+        C9 = torch.stack([cost_volume.build_cost_volume(E, ref_pad, 5, 5) for E in Es])
+    return VolumeSet(E=torch.stack(Es), consts=torch.stack(consts), ref_pad=ref_pad,
+                     C36=C36, C9=C9)
 
 
 def add_depth_volumes(vs: VolumeSet, depth_maps: torch.Tensor, cams: Cameras,
@@ -317,3 +328,13 @@ def recost_selected_views(ctx: CostContext, plane, selected, radius: int, increm
     total = torch.sum(torch.where(ok, costs, 0.0), dim=0)
     cost = torch.where(count > 0, total / torch.clamp(count, min=1), COST_MAX)
     return cost, ok
+
+
+def view_consts(vs: VolumeSet) -> torch.Tensor:
+    """[V-1, 21] per-source-view warp constants (row v-1 = camera v)."""
+    return vs.consts[:, 0]
+
+
+def view_geom_consts(vs: VolumeSet) -> torch.Tensor:
+    """[V-1, 33] per-source-view reprojection constants."""
+    return vs.geom_consts[:, 0]

@@ -39,6 +39,8 @@ SOURCES = {
     "ncc_cost": "ncc_cost.cu",
     "rebase_view": "rebase_view.cu",
     "geom_cost": "geom_cost.cu",
+    "gather_cols": "gather_cols.cu",
+    "contract_lookup": "contract_lookup.cu",
 }
 
 NVCC_FLAGS = [

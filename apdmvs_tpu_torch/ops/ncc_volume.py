@@ -73,6 +73,13 @@ def pack_geom_consts(K0, M, b, A, t2, u_min, du, src_w: int, src_h: int, row0=0.
     ]).reshape(1, _NGEOM)
 
 
+def fma(a, b, c) -> torch.Tensor:
+    """a * b + c of float32 tensors, rounded once as a fused multiply-add
+    does (exact in float64, where the product of two float32 is exact)."""
+    a, b, c = (torch.as_tensor(x).to(torch.float64) for x in (a, b, c))
+    return torch.addcmul(c, a, b).to(torch.float32)
+
+
 def _offsets(radius: int, increment: int):
     vals = list(range(-radius, radius + 1, increment))
     return [(dx, dy) for dx in vals for dy in vals]
@@ -106,6 +113,17 @@ def _check_common(E, ref_pad, planes, consts):
 # ---------------------------------------------------------------------------
 # H2: exact volume NCC
 # ---------------------------------------------------------------------------
+
+
+def ncc_moments(s_rr, s_ss, s_rs, mr, ms, inv):
+    """(var_r, var_s, cov) of the window sums, each s * inv - m * m' as one
+    fused multiply-add, as the reference computes them (the JAX package's
+    compiled code; nvcc's default contraction in the CUDA reference). It
+    decides constant patches: separately rounded, their variance is exactly
+    0 < MIN_VAR and the patch is degenerate; fused, it is the rounding
+    error of 1/S times the squared mean (~2e-4 at grey 128), the patch
+    costs ~1 and a textureless region is classified WEAK, not UNKNOWN."""
+    return fma(s_rr, inv, -(mr * mr)), fma(s_ss, inv, -(ms * ms)), fma(s_rs, inv, -(mr * ms))
 
 
 def ncc_volume_cost_ref(E_pad, ref_pad, planes, consts, num_slices: int,
@@ -148,11 +166,9 @@ def ncc_volume_cost_ref(E_pad, ref_pad, planes, consts, num_slices: int,
         rv = ref_pad[PAD_Y + dy: PAD_Y + dy + H, PAD_X + dx: PAD_X + dx + W]
         s_r, s_rr = s_r + rv, s_rr + rv * rv
         s_s, s_ss, s_rs = s_s + sv, s_ss + sv * sv, s_rs + rv * sv
-    inv = 1.0 / float(len(offsets))
+    inv = torch.tensor(1.0 / float(len(offsets)), dtype=torch.float32, device=dev)
     mr, ms = s_r * inv, s_s * inv
-    var_r = s_rr * inv - mr * mr
-    var_s = s_ss * inv - ms * ms
-    cov = s_rs * inv - mr * ms
+    var_r, var_s, cov = ncc_moments(s_rr, s_ss, s_rs, mr, ms, inv)
     cost = torch.clamp(1.0 - cov * torch.rsqrt(torch.clamp(var_r * var_s, min=1e-30)),
                        0.0, COST_MAX)
     cost = torch.where((var_r < MIN_VAR) | (var_s < MIN_VAR), COST_MAX, cost)

@@ -6,13 +6,25 @@ take their raw draws as tensors, so a caller can feed any source: the
 default :class:`TorchDraws` below, or a test-side source that replays
 another implementation's draws bit for bit.
 
-A draw source answers three requests, named after the pass stages that
+A draw source answers these requests, named after the pass stages that
 consume them:
 
   - ``init_plane()`` -> (u_depth [H,W] uniform, g_normal [H,W,3] Gaussian)
   - ``view_selection(it, color)`` -> u [S,H,W] uniform (S Monte-Carlo draws)
   - ``refinement(it, color)`` -> (u_depth [H,W], g_normal [H,W,3],
     u_pert [H,W], u_angles [H,W,3])
+
+and, on passes with the APD weak machinery (``weak.py``; N is the weak
+worklist's capacity):
+
+  - ``anchor_probes(steps, dirs, shift_range)`` -> int [steps, dirs, 2] ray
+    jitters in [-shift_range+1, shift_range)
+  - ``anchor_ransac(shape)`` -> int [5, N, 10, 3] in [0, 2^30): triangle
+    draws of the anchor RANSAC, reduced modulo the hit count by the caller
+  - ``fit_ransac(it, shape)`` -> the same for iteration ``it``'s plane fit
+  - ``weak_view_selection(it, n)`` -> u [S, N] uniform
+  - ``weak_refinement(it, n)`` -> (u_depth [N], g_normal [N,3], u_pert [N],
+    u_angles [N,3])
 
 Uniforms lie in [0, 1); Gaussians are standard normal.
 """
@@ -59,3 +71,22 @@ class TorchDraws:
     def refinement(self, it: int, color: int):
         H, W = self.shape
         return self._u(H, W), self._g(H, W, 3), self._u(H, W), self._u(H, W, 3)
+
+    def _i(self, low: int, high: int, shape) -> torch.Tensor:
+        return torch.randint(low, high, tuple(shape), generator=self.gen, device=self.device,
+                             dtype=torch.int64)
+
+    def anchor_probes(self, steps: int, dirs: int, shift_range: int) -> torch.Tensor:
+        return self._i(-shift_range + 1, shift_range, (steps, dirs, 2))
+
+    def anchor_ransac(self, shape) -> torch.Tensor:
+        return self._i(0, 1 << 30, shape)
+
+    def fit_ransac(self, it: int, shape) -> torch.Tensor:
+        return self._i(0, 1 << 30, shape)
+
+    def weak_view_selection(self, it: int, n: int) -> torch.Tensor:
+        return self._u(self.num_samples, n)
+
+    def weak_refinement(self, it: int, n: int):
+        return self._u(n), self._g(n, 3), self._u(n), self._u(n, 3)

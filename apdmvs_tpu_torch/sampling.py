@@ -48,6 +48,26 @@ def nearest_sample_trunc(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor) 
     return image.reshape(-1)[yi * W + xi]
 
 
+def gather_grid(field: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Integer-coordinate gather from a [H, W, ...] field, coordinates
+    clamped into the grid (so -1 padding reads row/column 0)."""
+    H, W = field.shape[:2]
+    xi = torch.clamp(x.to(torch.int64), 0, W - 1)
+    yi = torch.clamp(y.to(torch.int64), 0, H - 1)
+    return field.reshape((H * W,) + tuple(field.shape[2:]))[yi * W + xi]
+
+
+def select_axis1(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """values[n, idx[n, ...]] along axis 1. values: [N, D, *rest]; idx:
+    [N, *extra] with entries in [0, D). Returns [N, *extra, *rest]."""
+    N = values.shape[0]
+    rest = tuple(values.shape[2:])
+    extra = tuple(idx.shape[1:])
+    flat = idx.to(torch.int64).reshape(N, -1)  # [N, E]
+    flat = flat.reshape(flat.shape + (1,) * len(rest)).expand((N, flat.shape[1]) + rest)
+    return torch.gather(values, 1, flat).reshape((N,) + extra + rest)
+
+
 def shift2d(arr: torch.Tensor, dx: int, dy: int, fill) -> torch.Tensor:
     """Static shift: out[y, x] = arr[y + dy, x + dx], out of bounds -> fill.
     Leading two dims are (H, W); trailing dims ride along."""

@@ -2,16 +2,24 @@
 
     python -m apdmvs_tpu_torch.trace_pass [--out DIR]
 
-Renders the 5-view 640x480 ring scene (the scene ``chip_smoke.py`` runs),
-runs the one-round schedule once to warm up (kernel builds, cached image
-volumes, state files), then re-runs one FIRST_INIT and one geometric
-REFINE_ITER view-pass of view 0 under ``torch.profiler``. For each it prints
-the wall time (host clock, ending in a device sync), the device busy time
-(sum of kernel and copy times on the card), the device idle share, and the
-kernels that take the most device time, with their launch counts. With
-``--out`` it also writes each pass's Chrome trace there.
+Profiles, each under ``torch.profiler`` after a warm-up:
 
-Needs a CUDA card; the scene is written under ``_trace_scene/`` in the
+1. the 5-view 640x480 ring scene (the one-round scene ``chip_smoke.py``
+   runs): one FIRST_INIT and one geometric REFINE_ITER view-pass of view 0;
+2. bench.py's flagship pass (bench.py:89-160): a REFINE_ITER pass with
+   geometric consistency and the APD weak machinery on that scene, the
+   prior from the ground truth and a 19200-pixel weak box;
+3. the 1280x960 five-view scene with a textureless window that
+   ``chip_smoke.py`` runs in two rounds: after the two rounds, the last
+   geometric APD view-pass of view 0 again, image-volume builds included
+   (five sets at that size exceed the volume cache).
+
+For each it prints the wall time (host clock, ending in a device sync), the
+device busy time (sum of kernel and copy times on the card), the device
+idle share, and the kernels that take the most device time, with their
+launch counts. With ``--out`` it also writes each pass's Chrome trace there.
+
+Needs a CUDA card; the scenes are written under ``_trace_scene/`` in the
 repository root and removed afterwards.
 """
 
@@ -23,14 +31,58 @@ import os
 import shutil
 import time
 
+import numpy as np
 import torch
 
-from apdmvs_tpu_torch import scene
+from apdmvs_tpu_torch import geometry, ncc, pipeline, rng, scene
 from apdmvs_tpu_torch.datasets import synthetic
-from apdmvs_tpu_torch.params import build_schedule
+from apdmvs_tpu_torch.params import PassConfig, PixelState, RunState, build_schedule
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 W, H, V = 640, 480, 5
+
+#: bench.py's flagship pass: REFINE_ITER + geometric consistency + APD,
+#: ransac threshold 0.00875 (bench.py:119-129)
+FLAGSHIP_CFG = PassConfig(state=RunState.REFINE_ITER, geom_consistency=True, use_APD=True,
+                          max_iterations=3, weak_peak_radius=4)
+FLAGSHIP_RTH = 0.00875
+
+
+def flagship_state(images, depths, normals, cams, num_slices: int = 160):
+    """Volumes (E, C36, C9 and the ground truth's depth volumes), prior
+    (ground truth, WEAK box rows H/2 +- H/8 and cols W/2 +- W/8) and
+    worklist capacity of bench.py's flagship pass, plus the two build
+    times in ms. Depth range 1.2 .. 9.6 (bench.py:96-100)."""
+    dev = cams.device
+    V_, H_, W_ = images.shape
+    t0 = time.perf_counter()
+    vs = ncc.build_image_volume_set(torch.as_tensor(images, device=dev), cams, 1.2, 9.6,
+                                    num_slices=num_slices, weak_cost_volumes=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    vs = ncc.add_depth_volumes(vs, torch.as_tensor(depths, device=dev), cams, 1.2, 9.6)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    ps = torch.full((H_, W_), int(PixelState.STRONG), dtype=torch.uint8, device=dev)
+    ps[H_ // 2 - H_ // 8:H_ // 2 + H_ // 8, W_ // 2 - W_ // 8:W_ // 2 + W_ // 8] = int(
+        PixelState.WEAK)
+    cap = scene._bucket_capacity(int((ps == PixelState.WEAK).sum()), H_ * W_)
+    prior = pipeline.PassState(
+        depth=torch.as_tensor(depths[0], device=dev),
+        normal_world=torch.as_tensor(normals[0], device=dev),
+        pixel_state=ps,
+        selected=(torch.arange(V_, device=dev) > 0)[:, None, None].expand(V_, H_, W_).contiguous(),
+    )
+    return vs, prior, cap, (1e3 * (t1 - t0), 1e3 * (t2 - t1))
+
+
+def flagship_pass(cams, vs, prior, cap, seed: int) -> pipeline.PassOutputs:
+    """One flagship pass over view 0 with draws seeded by ``seed``."""
+    H_, W_ = prior.depth.shape
+    sv = torch.arange(cams.K.shape[0], device=cams.device) > 0
+    return pipeline.patchmatch_pass(cams, sv, prior, rng.TorchDraws(seed, H_, W_, cams.device),
+                                    FLAGSHIP_CFG, vs, weak_capacity=cap,
+                                    ransac_threshold=FLAGSHIP_RTH)
 
 
 def _device_kernels(prof):
@@ -44,12 +96,12 @@ def _device_kernels(prof):
     return out
 
 
-def _profile_pass(cache, problem, spec, out_dir, tag, top):
+def _profile_pass(run, out_dir, tag, top):
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        scene.process_problem(cache, problem, spec, (W, H), 0, "cuda", num_views_pad=V)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = _device_kernels(prof)
@@ -85,8 +137,35 @@ def main(argv=None) -> None:
         for p in problems:  # cache the image volumes, as a round does after its first pass
             scene.process_problem(cache, p, first, (W, H), 0, "cuda", num_views_pad=V)
         print(f"device: {torch.cuda.get_device_name(0)}; scene {V} views {W}x{H}, K=160")
-        _profile_pass(cache, problems[0], first, args.out, "first_init_pass", args.top)
-        _profile_pass(cache, problems[0], geom, args.out, "refine_iter_geom_pass", args.top)
+        for spec, tag in ((first, "first_init_pass"), (geom, "refine_iter_geom_pass")):
+            _profile_pass(lambda: scene.process_problem(cache, problems[0], spec, (W, H), 0,
+                                                        "cuda", num_views_pad=V),
+                          args.out, tag, args.top)
+        del cache
+
+        images, depths, normals = synthetic.render_scene(cams, planes)
+        tcams = geometry.make_cameras(
+            np.stack([c.K for c in cams]), np.stack([c.R for c in cams]),
+            np.stack([c.t for c in cams]), np.full(V, 1.2), np.full(V, 9.6), device="cuda")
+        vs, prior, cap, _ = flagship_state(images, depths, normals, tcams)
+        flagship_pass(tcams, vs, prior, cap, 0)
+        _profile_pass(lambda: flagship_pass(tcams, vs, prior, cap, 1), args.out,
+                      "flagship_apd_pass", args.top)
+        del vs, prior
+        torch.cuda.empty_cache()
+
+        shutil.rmtree(folder, ignore_errors=True)
+        W2, H2 = 1280, 960
+        cams, planes = synthetic.make_ring_scene(num_views=V, width=W2, height=H2, focal=1600.0,
+                                                 include_flat_region=True)
+        synthetic.write_mvsnet_dataset(folder, cams, planes, depth_ranges=(2.0, 8.0))
+        scene.run_scene(folder, device="cuda", verbose=False)  # both rounds, state files
+        problems = scene.generate_sample_list(folder)
+        cache = scene.SceneCache(folder, expected_sets=len(problems))
+        last = build_schedule(2)[-1]
+        _profile_pass(lambda: scene.process_problem(cache, problems[0], last, (W2, H2), 0, "cuda",
+                                                    num_views_pad=V),
+                      args.out, "round1_geom_apd_pass_1280x960", args.top)
     finally:
         shutil.rmtree(folder, ignore_errors=True)
 

@@ -37,7 +37,8 @@ def test_port_has_modules():
     rel = {os.path.relpath(p, ROOT) for p in _port_files()}
     for mod in ("params", "geometry", "sampling", "rng", "hypotheses", "ncc", "propagation",
                 "filters", "classify", "pipeline", "fusion", "scene", "convert", "__main__",
-                "ops/volume", "ops/ncc_volume", "ops/_build", "io/formats", "io/images",
+                "weak", "ops/volume", "ops/ncc_volume", "ops/cols", "ops/cost_volume",
+                "ops/_build", "io/formats", "io/images",
                 "io/render", "datasets/synthetic", "native/__init__"):
         assert f"apdmvs_tpu_torch/{mod}.py" in rel, mod
 
