@@ -41,6 +41,8 @@ SOURCES = {
     "geom_cost": "geom_cost.cu",
     "gather_cols": "gather_cols.cu",
     "contract_lookup": "contract_lookup.cu",
+    "gather_rows": "gather_rows.cu",
+    "volume_sample": "volume_sample.cu",
 }
 
 NVCC_FLAGS = [

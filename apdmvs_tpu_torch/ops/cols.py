@@ -1,5 +1,5 @@
-"""Worklist K-column gather and slice lookups of the weak (APD) path:
-kernels H5 and H6.
+"""Worklist K-column gather, row gather and slice lookups of the weak (APD)
+path: kernels H5, H6 and H7.
 
 PyTorch counterpart of ``apdmvs_tpu/ops/cols.py``. The weak machinery
 evaluates patch costs at scattered positions: each weak pixel and its 8
@@ -10,12 +10,28 @@ lookup inside the iteration loop becomes a dense lookup over those
 resident columns (``contract_lookup``, H6): a clamped linear interpolation
 along K (tent) or the nearest slice.
 
+The reference package gathers those columns as whole rows of a
+position-major table (``pack_volume_rows``); the port reads the volumes in
+place through H5 instead, and keeps the table entry points for callers that
+hold such a table: ``gather_rows`` and ``gather_rows_sorted`` (H7).
+
+Kernels, each replacing a TPU kernel of ``apdmvs_tpu/ops/cols.py``:
+
+- H5 ``csrc/gather_cols.cu``: ``:50 _make_gather_kernel`` (``gather_rows``,
+  ``:90``) with the layout work of ``build_weak_cols`` around it;
+- H6 ``csrc/contract_lookup.cu``: ``:335 _contract_kernel``
+  (``contract_lookup``, ``:351``);
+- H7 ``csrc/gather_rows.cu``: ``:151 _make_sorted_gather_kernel``
+  (``gather_rows_sorted``, ``:208``) and the table entry point of ``:50``
+  (``gather_rows``, ``:90``).
+
 The plain functions ``pack_volume_rows``, ``flat_index``,
 ``gather_rows_ref``, ``tent_lookup`` and ``nearest_lookup`` are the
 reference package's mirrors; the plain versions of H5 and H6 are composed
-of them exactly as the reference package composes them. Each wrapper runs
-its plain version on CPU tensors and launches its kernel on CUDA tensors,
-and counts its launches in ``<wrapper>.launches``.
+of them exactly as the reference package composes them, and
+``gather_rows_ref`` is H7's. Each wrapper runs its plain version on CPU
+tensors and launches its kernel on CUDA tensors, and counts its launches
+in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -125,6 +141,78 @@ def gather_cols(vol, xs, ys, pad_y: int, pad_x: int) -> torch.Tensor:
 
 
 gather_cols.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# H7: whole rows of a position-major table
+# ---------------------------------------------------------------------------
+
+
+_ROWS_SIG = {
+    "gather_rows_launch": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+}
+
+
+def _gather_rows(table: torch.Tensor, idx: torch.Tensor, wrapper) -> torch.Tensor:
+    """Checks, the CPU branch and the H7 launch shared by the two entry
+    points; a launch counts on ``wrapper.launches``."""
+    if table.dim() != 2:
+        raise ValueError("table must be a [R, C] tensor")
+    if idx.dim() != 1 or idx.dtype not in (torch.int32, torch.int64):
+        raise ValueError("idx must be an [M] int32 or int64 tensor")
+    if table.device != idx.device:
+        raise ValueError("inputs on several devices")
+    if table.device.type == "cpu":
+        return gather_rows_ref(table, idx)
+    if table.device.type != "cuda":
+        raise ValueError(f"unsupported device {table.device}")
+    R, C = table.shape
+    M = idx.shape[0]
+    out = torch.empty((M, C), dtype=table.dtype, device=table.device)
+    if M == 0:
+        return out
+    if R == 0:
+        raise ValueError("gather from an empty table")
+    table = table.contiguous()
+    idx = idx.to(torch.int64).contiguous()
+    lib = _build.load("gather_rows", _ROWS_SIG)
+    err = lib.gather_rows_launch(
+        table.data_ptr(), idx.data_ptr(), R, M, C * table.element_size(), table.element_size(),
+        out.data_ptr(), torch.cuda.current_stream(table.device).cuda_stream,
+    )
+    _build.check(err, "gather_rows")
+    wrapper.launches += 1
+    return out
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Kernel H7 wrapper for the table entry point of the TPU kernel
+    ``_make_gather_kernel`` (``gather_rows``): out[m] = table[clip(idx[m])],
+    [M, C] in the table's dtype, a bit-exact copy (:func:`gather_rows_ref`).
+    The weak machinery reads its volumes in place through
+    :func:`gather_cols` instead; this serves callers that hold a
+    position-major table. A table that is not contiguous, such as the view
+    :func:`pack_volume_rows` returns, is copied whole before the launch."""
+    return _gather_rows(table, idx, gather_rows)
+
+
+gather_rows.launches = 0
+
+
+def gather_rows_sorted(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Kernel H7 wrapper for the TPU kernel ``_make_sorted_gather_kernel``
+    (``gather_rows_sorted``): :func:`gather_rows` for non-decreasing
+    ``idx``. Sortedness is not checked and changes nothing (the reference
+    calls it a correctness-neutral invariant): the TPU kernel used it to
+    share one DMA between neighbouring requests of one row group, while on
+    the card L2 serves repeated rows to the same kernel."""
+    return _gather_rows(table, idx, gather_rows_sorted)
+
+
+gather_rows_sorted.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -2,12 +2,19 @@
 
 PyTorch counterpart of ``apdmvs_tpu/ops/ncc_volume.py``. The reference
 package evaluates one function, the exact volume NCC of C candidate plane
-fields against one source view, through five TPU kernels that differ only in
-how they fetch (L1 band + L2 fixup, full-K, rebased, auto-centred sweep
-bands). Here one CUDA kernel, ``csrc/ncc_cost.cu`` (H2), serves all four
-public entry points; an optional rebased volume R (H3,
-``csrc/rebase_view.cu``) only changes which array a sample reads. The
-geometric-consistency cost over depth volumes is H4 (``csrc/geom_cost.cu``).
+fields against one source view, through six TPU kernels that differ only in
+how they fetch: the L1 band ``:353 _kernel`` with its L2 fixups (the
+two-band ``:708 _band2_kernel`` under ``APDMVS_BAND2=1``, then the full-K
+``:625 _fixup_kernel``), the full-K ``:574 _kernel_fullk``, the rebased
+``:205 _kernel_rb`` and the auto-centred sweep bands ``:1659
+_kernel_rb_offs``. The bands, the fixups and the rebase exist because a TPU
+core cannot gather: it streams windows of slices and selects. Here one CUDA
+kernel, ``csrc/ncc_cost.cu`` (H2), loads the two slices of every sample by
+address and serves all four public entry points, so it is also the
+counterpart of the L2 chain; an optional rebased volume R (H3,
+``csrc/rebase_view.cu``, for ``:1029 _rebase_kernel``) only changes which
+array a sample reads. The geometric-consistency cost over depth volumes is
+H4 (``csrc/geom_cost.cu``, for ``:1370 _geom_kernel``).
 
 Layout and padding follow the reference package so arrays compare index for
 index: volumes are [K, H+2*PAD_Y, W+2*PAD_X] over the padded pixel grid,
@@ -239,7 +246,19 @@ ncc_cost.launches = 0
 def ncc_volume_cost_view(E_pad, ref_pad, planes, consts, num_slices: int,
                          radius: int = 5, increment: int = 2) -> torch.Tensor:
     """Exact NCC costs [C, H, W] from E (the reference package's banded
-    kernel + fixup entry)."""
+    kernel + fixup entry).
+
+    In the reference, L1 (``_kernel``) computes the tiles whose samples fit
+    its 32-slice band and marks the others with a -1 sentinel; L2 recomputes
+    those. With ``APDMVS_BAND2=1``, L2a (``_band2_kernel``, K10) first tries
+    two 32-slice windows anchored at the candidate group's k range (a depth
+    edge's two sides), bit-exact with the full-K path where they reach, and
+    escalates what they miss to L2b, the full-K ``_fixup_kernel``. The chain
+    returns the exact NCC of ``ncc_volume_cost_view_ref`` whichever way it
+    goes. H2 loads each sample's two slices by address, so no sample can
+    miss and there is nothing to fix up: H2 is the counterpart of L1, L2a
+    and L2b together. The flag only chooses which TPU kernels compute the
+    same values, so the port does not read it."""
     return ncc_cost(E_pad, ref_pad, planes, consts, num_slices, radius, increment)
 
 

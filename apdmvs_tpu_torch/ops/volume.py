@@ -1,16 +1,23 @@
-"""Epipolar plane-sweep volumes: the inverse-depth slice grid and the
-volume builder (kernel H1).
+"""Epipolar plane-sweep volumes: the inverse-depth slice grid, the volume
+builder (kernel H1) and the K-interpolating sampler (kernel H8).
 
 PyTorch counterpart of ``apdmvs_tpu/ops/volume.py``. E[k, y, x] is the
 source image bilinearly sampled at the warp of reference pixel (x, y) under
 the fronto-parallel plane at inverse depth u_k = u_min + k du: one global
 homography per slice. Any plane hypothesis's warp of (x, y) equals E
 sampled at k(depth(x, y)) exactly, which is what the cost kernels
-interpolate.
+interpolate, and what :func:`volume_sample` computes at a depth map's
+slice coordinates (:func:`depth_to_slice`).
 
-:func:`build_volume` is the wrapper: on a CPU tensor it runs the plain
-version :func:`build_volume_padded`; on a CUDA tensor it launches
-``csrc/build_volume.cu`` (or raises).
+Two wrappers, each running its plain version on a CPU tensor and launching
+its kernel on a CUDA tensor (or raising), with a launch counter:
+
+- :func:`build_volume` (H1, ``csrc/build_volume.cu``; replaces
+  ``apdmvs_tpu/ops/volume.py:123 _build_kernel``), plain version
+  :func:`build_volume_padded`;
+- :func:`volume_sample` (H8, ``csrc/volume_sample.cu``; replaces
+  ``apdmvs_tpu/ops/volume.py:375 _select_kernel``), plain version
+  :func:`volume_sample_ref`.
 """
 
 from __future__ import annotations
@@ -32,6 +39,11 @@ def inv_depth_grid(depth_min, depth_max, num_slices: int):
     u_max = 1.0 / depth_min
     du = (u_max - u_min) / (num_slices - 1)
     return u_min, du
+
+
+def depth_to_slice(depth, u_min, du):
+    """Fractional slice coordinate of a depth value (clamps nothing)."""
+    return (1.0 / depth - u_min) / du
 
 
 def build_volume_padded(
@@ -118,3 +130,59 @@ def build_volume(
 
 
 build_volume.launches = 0
+
+
+def volume_sample_ref(E: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Plain version of H8 (the reference package's ``volume_sample_ref``):
+    linear interpolation along K with border clamping. E: [K, H, W]; k:
+    [H, W] float; returns [H, W] f32. A NaN ``k`` reads slice 0 and gives
+    NaN, as the mirror's float-to-integer conversion does."""
+    K = E.shape[0]
+    kc = torch.clamp(k, 0.0, K - 1.0)
+    k0 = torch.nan_to_num(torch.floor(kc), nan=0.0).to(torch.int64)
+    k1 = torch.clamp(k0 + 1, max=K - 1)
+    f = (kc - k0.to(torch.float32)).to(torch.float32)
+    e0 = torch.gather(E, 0, k0[None])[0].to(torch.float32)
+    e1 = torch.gather(E, 0, k1[None])[0].to(torch.float32)
+    return e0 * (1.0 - f) + e1 * f
+
+
+_SAMPLE_SIG = {
+    "volume_sample_launch": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p,
+    ]
+}
+
+
+def volume_sample(E: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Kernel H8 wrapper (for the TPU kernel ``_select_kernel``, entry
+    ``volume_sample``): E [K, H, W] bf16 or f32, k [H, W] f32 -> [H, W] f32,
+    as :func:`volume_sample_ref`, NaN included. Any H and W (the reference
+    package's multiples of (8, 128) are its TPU tiling)."""
+    if E.dim() != 3 or E.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError("E must be a [K, H, W] bf16 or f32 tensor")
+    if k.dtype != torch.float32 or tuple(k.shape) != tuple(E.shape[1:]):
+        raise ValueError(f"k must be a {tuple(E.shape[1:])} float32 tensor")
+    if E.device != k.device:
+        raise ValueError("inputs on several devices")
+    if E.device.type == "cpu":
+        return volume_sample_ref(E, k)
+    if E.device.type != "cuda":
+        raise ValueError(f"unsupported device {E.device}")
+    K, H, W = E.shape
+    E, k = E.contiguous(), k.contiguous()
+    out = torch.empty((H, W), dtype=torch.float32, device=E.device)
+    if H * W == 0:
+        return out
+    lib = _build.load("volume_sample", _SAMPLE_SIG)
+    err = lib.volume_sample_launch(
+        E.data_ptr(), k.data_ptr(), K, H * W, int(E.dtype == torch.bfloat16), out.data_ptr(),
+        torch.cuda.current_stream(E.device).cuda_stream,
+    )
+    _build.check(err, "volume_sample")
+    volume_sample.launches += 1
+    return out
+
+
+volume_sample.launches = 0

@@ -31,13 +31,29 @@ and no ``ok`` line is printed:
    bit-exact; B=10 and 5, lanes with k NaN, +-inf, < 0, > K-1) against
    their plain versions at the flagship shapes below, and times kernel,
    plain version and library yardstick.
-5. flagship pass: bench.py's program through the port, a REFINE_ITER pass
+5. ops: the entry points that no default path calls, at full width, run
+   once with the launch counters zeroed just before and read just after
+   (their launches in the kernels line are these): H8 volume_sample on the
+   volumes E of view 1 ([160, 496, 896] bf16) and D ([160, 480, 640] f32)
+   at k = depth_to_slice of view 0's ground truth, with lanes of k NaN,
+   +-inf, < 0, > K-1, K-1 and integers; H7 gather_rows on the
+   position-major tables of C9 at the anchors and of D at the weak pixels,
+   gather_rows_sorted on C36's at the weak pixels sorted; and H2 on K10's
+   case (the ground-truth plane and a random-depth plane in one candidate
+   group). H7 and H8 must be bit-exact with their plain versions (NaN
+   where the plain version has NaN) and H7 equal to H5's columns, H2 within
+   1e-4; E sampled at k must stay within the thresholds of
+   tests/test_volume.py:87-90 of the direct warp. Times kernel, plain
+   version and library yardstick (index_select, 5-D grid_sample) in device
+   time (20 calls replayed from a CUDA graph), and the kernel's wrapper
+   per call.
+6. flagship pass: bench.py's program through the port, a REFINE_ITER pass
    with geometric consistency and the APD weak machinery at 640x480x5
    (prior from the ground truth, a 19200-pixel weak box, worklist 24576,
    ransac threshold 0.00875): wall ms of 5 passes after a warm-up, the
    launches of H1-H6 in one pass; median relative depth error < 0.01 over
    interior pixels and over the weak box.
-6. two rounds: a 1280x960 five-view scene with a textureless window
+7. two rounds: a 1280x960 five-view scene with a textureless window
    through ``scene.run_scene``: two rounds (40 view-passes), the second
    with the weak machinery, then ETH fusion. Every kernel H1-H6 must have
    launched and > 1000 weak pixels must enter round 1's REFINE_INIT pass of
@@ -46,7 +62,7 @@ and no ``ok`` line is printed:
    median point-to-plane distance < 0.05.
 
 Then it prints the ``kernels`` JSON line (launches: H1-H4 from phase 3,
-H5-H6 from phase 6), the card's name and power limit, and last
+H5-H6 from phase 7, H7-H8 from phase 5), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the rest
 of the repository beside it, it fails before printing any result.
 """
@@ -102,6 +118,34 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn``: ``reps`` calls captured in one CUDA
+    graph and replayed between two events. Back-to-back calls (``time_ms``)
+    time the host instead wherever a call's Python and ctypes work (~30 us)
+    outlasts its kernels."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / reps
+
+
 def bf16_ulps(a, b):
     """Distance between two bf16 tensors in units in the last place."""
     import torch
@@ -141,6 +185,20 @@ def ncc_touched(planes_cf, consts, num_slices, PH, PW, radius=5, increment=2):
         seen[k0 * (PH * PW) + pix] = True
         seen[torch.clamp(k0 + 1, max=num_slices - 1) * (PH * PW) + pix] = True
     return int(seen.sum())
+
+
+def h2_bound(planes_cf, consts):
+    """H2's bound for these fields: the NCC function's own traffic (the
+    elements of E that the fields' windows touch (R and bf only copy E), the
+    reference image under the windows, planes in, costs out) or its f32
+    operations, the larger; and the elements touched."""
+    from apdmvs_tpu_torch.ops import ncc_volume as nv
+
+    C, _, Hp, Wp = planes_cf.shape
+    touched = ncc_touched(planes_cf, consts, K, Hp + 2 * nv.PAD_Y, Wp + 2 * nv.PAD_X)
+    nbytes = (touched * 2 + (Hp + 10) * (Wp + 10) * 4 + C * 4 * Hp * Wp * 4
+              + C * Hp * Wp * 4)
+    return bound(nbytes, C * Hp * Wp * (36 * OPS_H2_SAMPLE + OPS_H2_OUT)), touched
 
 
 def geom_touched(planes_cf, gconsts, num_slices):
@@ -286,6 +344,8 @@ def phase_kernels(dev, inputs):
                      plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib))
     log(f"kernel H3 rebase_view: {ms:.3f} ms (plain {plain:.3f}, torch.gather {lib:.3f}, "
         f"bound {b_ms:.4f} by {b_by}) at j2=25 {PH}x{PW}")
+    log(f"kernel H3 rebase_view: device {graph_ms(lambda: nv.build_rebased_view(E, base_k, K)):.4f}"
+        f" ms, torch.gather device {graph_ms(lambda: torch.gather(E, 0, idx)):.4f} ms")
 
     # ---- H2 ncc_cost at the main path's batch shapes
     x, y = geometry.pixel_grid(H, W, dev)
@@ -310,15 +370,6 @@ def phase_kernels(dev, inputs):
         "C8_sweep_R49": (torch.stack([plane_field(gt * (1 + 0.004 * (s - 4)), n_cam)
                                       for s in range(8)]), "sweep"),
     }
-    def h2_bound(planes_cf, consts):
-        """The NCC function's own traffic: the elements of E that these
-        fields' windows touch (R and bf only copy E), the reference image
-        under the windows, planes in, costs out; or its f32 operations."""
-        C = planes_cf.shape[0]
-        touched = ncc_touched(planes_cf, consts, K, PH, PW)
-        nbytes = (touched * 2 + (Hp + 10) * (Wp + 10) * 4 + C * 4 * Hp * Wp * 4
-                  + C * Hp * Wp * 4)
-        return bound(nbytes, C * Hp * Wp * (36 * OPS_H2_SAMPLE + OPS_H2_OUT)), touched
 
     err_h2, t_h2 = 0.0, {}
     consts = vs.consts[0]
@@ -355,6 +406,8 @@ def phase_kernels(dev, inputs):
     (b1, by1), touched = h2_bound(pl1, consts)
     log(f"kernel H2 ncc_cost C1_E: max abs {err:.3e} (tol 1e-4); {ms1:.3f} ms (plain "
         f"{plain1:.3f}; bound {b1:.4f} by {by1}; E elements touched {touched})")
+    log(f"kernel H2 ncc_cost C1_E: device "
+        f"{graph_ms(lambda: nv.ncc_cost(E, vs.ref_pad, pl1, consts, K)):.4f} ms")
     for name in ("C3_fullk_E", "C8_sweep_R49"):
         pl = t_h2[name][0]
         plain_c = time_ms(lambda: nv.ncc_volume_cost_ref(E, vs.ref_pad, pl, consts, K), 2, 1)
@@ -389,13 +442,24 @@ def phase_kernels(dev, inputs):
                      plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None))
     log(f"kernel H4 geom_cost: {ms:.3f} ms (plain {plain:.3f}, bound {b_ms:.4f} by {b_by}; "
         f"D elements touched {touched}) at C=8 {Hp}x{Wp}")
+    log(f"kernel H4 geom_cost: device "
+        f"{graph_ms(lambda: nv.geom_volume_cost_view(Dp, planes_cf, gconsts, K)):.4f} ms")
     torch.cuda.synchronize()
     return rows
 
 
 # the kernels of the one-round path (the weak machinery's H5, H6 run only
-# in rounds after the first)
+# in rounds after the first); of the two-round scene; and of the ops entry
+# points that no default path calls (H7, H8) with H2 on K10's case
 ONE_ROUND_KERNELS = ("build_volume", "ncc_cost", "rebase_view", "geom_cost")
+TWO_ROUND_KERNELS = ONE_ROUND_KERNELS + ("gather_cols", "contract_lookup")
+OPS_KERNELS = ("volume_sample", "gather_rows", "gather_rows_sorted", "ncc_cost")
+# K10's two windows are BAND2 = 32 slices each (apdmvs_tpu/ops/ncc_volume.py:81)
+BAND2 = 32
+# grid_sample counts as computing volume_sample's function if it agrees with
+# the plain version to coordinate rounding: normalised pixel centres come
+# back within ~1e-4 px, worth < 0.05 grey levels next to a 255-level step
+LIB_TOL = 0.05
 
 
 def _counters():
@@ -403,7 +467,9 @@ def _counters():
 
     return {"build_volume": vol.build_volume, "ncc_cost": nv.ncc_cost,
             "rebase_view": nv.build_rebased_view, "geom_cost": nv.geom_volume_cost_view,
-            "gather_cols": cols.gather_cols, "contract_lookup": cols.contract_lookup}
+            "gather_cols": cols.gather_cols, "contract_lookup": cols.contract_lookup,
+            "gather_rows": cols.gather_rows, "gather_rows_sorted": cols.gather_rows_sorted,
+            "volume_sample": vol.volume_sample}
 
 
 def phase_main_path(dev, inputs):
@@ -531,6 +597,8 @@ def phase_cols(dev, inputs, flag):
         b_ms, b_by = bound((positions + M) * Vs * Kv * vol.element_size() + 8 * M, 0.0)
         log(f"kernel H5 gather_cols {name}: {ms:.3f} ms (plain {plain:.3f}, vol[:, :, ys, xs] "
             f"{lib:.3f}, bound {b_ms:.4f} by {b_by}; M {M}, distinct positions {positions})")
+        log(f"kernel H5 gather_cols {name}: device {graph_ms(lambda: cols.gather_cols(*args)):.4f}"
+            f" ms, vol[:, :, ys, xs] device {graph_ms(lambda: vol[:, :, yi, xi]):.4f} ms")
         h5[name] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
     rows.append(dict(name="gather_cols", route="cuda", source="apdmvs_tpu_torch/csrc/gather_cols.cu",
                      replaces="apdmvs_tpu/ops/cols.py:50", max_abs_err=0.0, **h5["c9"]))
@@ -607,6 +675,11 @@ def phase_cols(dev, inputs, flag):
             log(f"kernel H6 contract_lookup {name} B={B}: {ms:.3f} ms (plain {plain:.3f}, "
                 f"torch.gather {lib_s}, bound {b_ms:.4f} by {b_by}; column elements touched "
                 f"{touched})")
+            # the same in device time (a call's host work can outlast kernels this short)
+            dev_ms = graph_ms(lambda: cols.contract_lookup(table, kb, nearest=nearest))
+            dev_lib = graph_ms(lambda: torch.gather(table, 1, idx)) if nearest else None
+            log(f"kernel H6 contract_lookup {name} B={B}: device {dev_ms:.4f} ms"
+                + ("" if dev_lib is None else f", torch.gather device {dev_lib:.4f} ms"))
             h6[(name, B)] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                                  library_ms=lib)
     rows.append(dict(name="contract_lookup", route="cuda",
@@ -614,6 +687,205 @@ def phase_cols(dev, inputs, flag):
                      replaces="apdmvs_tpu/ops/cols.py:335", max_abs_err=err_h6,
                      **h6[("c9 tent", 10)]))
     torch.cuda.synchronize()
+    return rows, (weak_xy, a)
+
+
+def phase_ops(dev, inputs, flag, worklist):
+    """The ops entry points that no default path calls, at full width: H8
+    ``volume_sample`` on E and D at view 0's ground truth, H7
+    ``gather_rows`` / ``gather_rows_sorted`` on the flagship's position-major
+    tables at its worklist, and H2 on K10's case (a depth-edge candidate
+    group). One counted run of every entry point, then each output against
+    its plain version (and H7 against H5's columns), times and bounds."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from apdmvs_tpu_torch import geometry, ncc, sampling
+    from apdmvs_tpu_torch.ops import cols, ncc_volume as nv, volume as vol
+
+    t_phase = time.perf_counter()
+    _, _, images, depths, normals, cams = inputs
+    vs = flag[0]
+    weak_xy, a = worklist
+    u_min, du = vs.u_grid
+    PY, PX = nv.PAD_Y, nv.PAD_X
+    Hp, Wp = ncc._ceil_to(H, nv.NCC_TILE_H), ncc._ceil_to(W, nv.TILE_W)
+    PH, PW = Hp + 2 * PY, Wp + 2 * PX
+    dm0 = torch.as_tensor(depths[0], device=dev)
+    gt = torch.where(dm0 > 0, dm0, torch.full_like(dm0, 4.0))
+    nan, inf = float("nan"), float("inf")
+
+    def slice_map(depth):
+        """k of ``depth`` with lanes of k NaN, +-inf, < 0, > K-1, exactly
+        K-1, integers (rows 0-2: padding rows of E's grid)."""
+        k = vol.depth_to_slice(depth, u_min, du)
+        k[0, :10] = torch.tensor([nan, inf, -inf, -5.0, K + 10.0, K - 1.0, 0.0, 7.0, 31.0,
+                                  K - 2.0])
+        k[1, ::7] = nan
+        k[2] = torch.floor(k[2])
+        return k.contiguous()
+
+    k_E = slice_map(ncc._edge_pad(gt, PY, PY + Hp - H, PX, PX + Wp - W))
+    k_D = slice_map(gt)
+    wx, wy = weak_xy[:, 0], weak_xy[:, 1]
+    ax, ay = a[..., 0].reshape(-1), a[..., 1].reshape(-1)
+    idx_s, order = torch.sort(cols.flat_index(wx, wy, PY, PX, PH, PW), stable=True)
+    # name: (entry, volume, index, worklist xs, ys, pad_y, pad_x)
+    gcases = {
+        "c9 anchors": (cols.gather_rows, vs.C9, cols.flat_index(ax, ay, PY, PX, PH, PW), ax, ay,
+                       PY, PX),
+        "c36 sorted": (cols.gather_rows_sorted, vs.C36, idx_s, wx[order], wy[order], PY, PX),
+        "d": (cols.gather_rows, vs.D, cols.flat_index(wx, wy, 0, 0, H, W), wx, wy, 0, 0),
+    }
+    # materialised once, as the reference package's tables are (the port's
+    # pack_volume_rows is a transposed view, which the wrapper would copy)
+    tables = {name: cols.pack_volume_rows(c[1]).contiguous() for name, c in gcases.items()}
+    x, y = geometry.pixel_grid(H, W, dev)
+    n_cam = geometry.normal_world_to_cam(cams.R[0], torch.as_tensor(normals[0], device=dev))
+    rand = torch.as_tensor(np.random.RandomState(3).uniform(1.2, 9.6, (H, W)), device=dev,
+                           dtype=torch.float32)
+    pcf = ncc._pad_planes_cf(torch.stack([
+        torch.cat([n_cam, geometry.dist_to_origin(cams.K[0], x, y, d, n_cam)[..., None]], -1)
+        for d in (gt, rand)]), Hp, Wp)
+    E0, ref_pad, consts = vs.E[0], vs.ref_pad, vs.consts[0]
+    torch.cuda.synchronize()
+
+    # ---- the counted run: every entry point once
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    out_E = vol.volume_sample(E0, k_E)
+    out_D = vol.volume_sample(vs.D[0], k_D)
+    got_rows = {name: c[0](tables[name], c[2]) for name, c in gcases.items()}
+    cost = nv.ncc_volume_cost_view(E0, ref_pad, pcf, consts, K)
+    torch.cuda.synchronize()
+    launches = {n: counters[n].launches for n in OPS_KERNELS}
+    log("ops: launches of one run of the entry points (these kernels run on no default path; "
+        "their launches in the kernels line are these) " + json.dumps(launches))
+    missing = [n for n in OPS_KERNELS if launches[n] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the ops entry points: {missing}")
+    rows = []
+
+    # ---- H8 volume_sample: bit-exact, NaN where the plain version has NaN
+    h8, err_h8 = {}, 0.0
+    for name, Ev, kk, out in (("E", E0, k_E, out_E), ("D", vs.D[0], k_D, out_D)):
+        ref = vol.volume_sample_ref(Ev, kk)
+        isn = torch.isnan(ref)
+        exact = (torch.equal(torch.isnan(out), isn)
+                 and torch.equal(out[~isn].view(torch.int32), ref[~isn].view(torch.int32)))
+        err = float((out[~isn] - ref[~isn]).abs().max())
+        err_h8 = max(err_h8, err)
+        log(f"kernel H8 volume_sample {name}: {tuple(Ev.shape)} {Ev.dtype} -> {tuple(out.shape)}, "
+            f"bit-exact {exact}, NaN outputs {int(isn.sum())} (tol: bit-exact, NaN where the "
+            "plain version has NaN)")
+        if not exact:
+            raise AssertionError(f"H8 disagrees with its plain version ({name})")
+        ms = graph_ms(lambda: vol.volume_sample(Ev, kk))
+        call = time_ms(lambda: vol.volume_sample(Ev, kk), 20)
+        plain = graph_ms(lambda: vol.volume_sample_ref(Ev, kk), 5)
+        # library yardstick: one trilinear grid_sample over E as a 5-D volume
+        # (f32: grid and input share a dtype) at pixel centres and z = k
+        Kv, Hv, Wv = Ev.shape
+        Ef = Ev.float()[None, None]
+        gy, gx = torch.meshgrid(torch.arange(Hv, device=dev, dtype=torch.float32),
+                                torch.arange(Wv, device=dev, dtype=torch.float32), indexing="ij")
+        grid = torch.stack([gx / (Wv - 1) * 2 - 1, gy / (Hv - 1) * 2 - 1,
+                            kk / (Kv - 1) * 2 - 1], -1)[None, None]
+        lib_out = F.grid_sample(Ef, grid, mode="bilinear", padding_mode="border",
+                                align_corners=True)[0, 0, 0]
+        fin = torch.isfinite(kk)
+        lib_err = float((lib_out[fin] - ref[fin]).abs().max())
+        lib = None
+        if lib_err <= LIB_TOL:
+            lib = graph_ms(lambda: F.grid_sample(Ef, grid, mode="bilinear", padding_mode="border",
+                                                 align_corners=True))
+        # bytes: the distinct elements of the two slices each pixel reads, k
+        # in, out written; 5 f32 operations a pixel
+        k0 = torch.floor(torch.nan_to_num(kk, nan=0.0).clamp(0, Kv - 1))
+        distinct = kk.numel() + int((torch.clamp(k0 + 1, max=Kv - 1) != k0).sum())
+        b_ms, b_by = bound(distinct * Ev.element_size() + 2 * kk.numel() * 4, 5.0 * kk.numel())
+        lib_s = "none" if lib is None else f"{lib:.4f}"
+        log(f"kernel H8 volume_sample {name}: {ms:.4f} ms device, {call:.4f} ms a call (plain "
+            f"{plain:.4f}, grid_sample {lib_s} (max abs {lib_err:.3e} from the plain version on "
+            f"finite k, tol {LIB_TOL}), bound {b_ms:.4f} by {b_by}; elements read {distinct})")
+        h8[name] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+        del Ef, grid, lib_out
+    # the property of tests/test_volume.py:54-90: E sampled at k(depth)
+    # against the direct bilinear warp of the source image
+    wc = geometry.warp_constants(cams)
+    q = (geometry.mat3_vec(wc.M[1], geometry.pixel_dirs(cams.K[0], x, y))
+         + wc.b[1] * (1.0 / gt)[..., None])
+    sx, sy = q[..., 0] / q[..., 2], q[..., 1] / q[..., 2]
+    direct = sampling.bilinear_sample(torch.as_tensor(images[1], device=dev), sx, sy)
+    inb = (dm0 > 0) & (sx > 1) & (sx < W - 2) & (sy > 1) & (sy < H - 2)
+    diff = (out_E[PY:PY + H, PX:PX + W] - direct).abs()[inb]
+    med, under = float(diff.median()), float((diff < 8.0).float().mean())
+    log(f"ops: E sampled at k(depth) vs the direct warp over {int(inb.sum())} pixels: median "
+        f"{med:.4f} grey levels (tol < 2.0), {100 * under:.3f}% under 8.0 (tol > 95%)")
+    if not (med < 2.0 and under > 0.95):
+        raise AssertionError("volume_sample through E strays from the direct warp")
+    rows.append(dict(name="volume_sample", route="cuda",
+                     source="apdmvs_tpu_torch/csrc/volume_sample.cu",
+                     replaces="apdmvs_tpu/ops/volume.py:375", launches=launches["volume_sample"],
+                     max_abs_err=err_h8, **h8["E"]))
+
+    # ---- H7 gather_rows / gather_rows_sorted: bit-exact, and H5's columns
+    h7, err_h7 = {}, 0.0
+    for name, (entry, volm, idx, xs, ys, py, px) in gcases.items():
+        table, out = tables[name], got_rows[name]
+        ref = cols.gather_rows_ref(table, idx)
+        bits = torch.int16 if table.dtype == torch.bfloat16 else torch.int32
+        exact = torch.equal(out.view(bits), ref.view(bits))
+        Vs, Kv = volm.shape[:2]
+        same = torch.equal(out.reshape(-1, Vs, Kv).permute(1, 2, 0).contiguous().view(bits),
+                           cols.gather_cols(volm, xs, ys, py, px).view(bits))
+        err = float((out.float() - ref.float()).abs().max())
+        err_h7 = max(err_h7, err)
+        log(f"kernel H7 {entry.__name__} {name}: table {tuple(table.shape)} {table.dtype} -> "
+            f"{tuple(out.shape)}, bit-exact {exact}, equals gather_cols's columns {same} "
+            "(tol: bit-exact)")
+        if not (exact and same):
+            raise AssertionError(f"H7 disagrees with its plain version or H5 ({name})")
+        ms = graph_ms(lambda: entry(table, idx))
+        call = time_ms(lambda: entry(table, idx), 20)
+        plain = graph_ms(lambda: cols.gather_rows_ref(table, idx), 5)
+        idx_cl = torch.clamp(idx, 0, table.shape[0] - 1)
+        lib = graph_ms(lambda: torch.index_select(table, 0, idx_cl))
+        M, row_bytes = idx.numel(), table.shape[1] * table.element_size()
+        distinct = int(torch.unique(idx_cl).numel())
+        b_ms, b_by = bound((distinct + M) * row_bytes + M * idx.element_size(), 0.0)
+        log(f"kernel H7 {entry.__name__} {name}: {ms:.4f} ms device, {call:.4f} ms a call "
+            f"(plain {plain:.4f}, index_select {lib:.4f}, bound {b_ms:.4f} by {b_by}; M {M}, "
+            f"distinct rows {distinct})")
+        h7[name] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+    rows.append(dict(name="gather_rows", route="cuda", source="apdmvs_tpu_torch/csrc/gather_rows.cu",
+                     replaces="apdmvs_tpu/ops/cols.py:151",
+                     launches=launches["gather_rows"] + launches["gather_rows_sorted"],
+                     max_abs_err=err_h7, **h7["c36 sorted"]))
+    del tables, got_rows
+
+    # ---- H2 on K10's case: the ground-truth plane and a random-depth plane
+    # in one candidate group, so a tile's slices span nearly all of K
+    ref = nv.ncc_volume_cost_ref(E0, ref_pad, pcf, consts, K)
+    err = float((cost - ref).abs().max())
+    kc = vol.depth_to_slice(torch.stack([gt, rand]), u_min, du).clamp(0, K - 1)
+    tiles = kc.reshape(2, H // nv.NCC_TILE_H, nv.NCC_TILE_H, W // nv.TILE_W, nv.TILE_W)
+    span = tiles.amax(dim=(0, 2, 4)) - tiles.amin(dim=(0, 2, 4))
+    wide = int((span > 2 * BAND2).sum())
+    log(f"kernel H2 ncc_cost K10 case (C=2, ground truth + random depth): max abs {err:.3e} "
+        f"(tol 1e-4); {wide} of {span.numel()} tiles span more than two {BAND2}-slice bands")
+    if not (err < 1e-4 and wide > 0):
+        raise AssertionError("H2 fails K10's case, or the case has no tile the bands miss")
+    ms = time_ms(lambda: nv.ncc_volume_cost_view(E0, ref_pad, pcf, consts, K), 20)
+    plain = time_ms(lambda: nv.ncc_volume_cost_ref(E0, ref_pad, pcf, consts, K), 3, 1)
+    (b_ms, b_by), touched = h2_bound(pcf, consts)
+    log(f"kernel H2 ncc_cost K10 case: {ms:.3f} ms (plain {plain:.3f}, bound {b_ms:.4f} by "
+        f"{b_by}; E elements touched {touched}, {touched / (PH * PW):.2f} slices a pixel); no "
+        "single PyTorch call computes it")
+    torch.cuda.synchronize()
+    log(f"ops: phase took {time.perf_counter() - t_phase:.2f} s")
     return rows
 
 
@@ -738,7 +1010,7 @@ def phase_two_rounds(dev):
         log(f"two rounds: {len(run.passes)} view-passes + fusion in {wall:.2f} s, peak device "
             f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
             + json.dumps(launches))
-        missing = [n for n, c in launches.items() if c == 0]
+        missing = [n for n in TWO_ROUND_KERNELS if launches[n] == 0]
         if missing:
             raise AssertionError(f"kernels not launched on the two-round scene: {missing}")
         weak_in = next(st for spec, problem, st in run.passes
@@ -797,16 +1069,21 @@ def main() -> int:
     rows = phase_kernels(dev, inputs)
     launches, _ = phase_main_path(dev, inputs)
     flag = flagship_state(dev, inputs)
-    rows += phase_cols(dev, inputs, flag)
+    cols_rows, worklist = phase_cols(dev, inputs, flag)
+    rows += cols_rows
+    rows += phase_ops(dev, inputs, flag, worklist)
+    torch.cuda.empty_cache()
     phase_flagship(dev, inputs, flag)
-    del flag
+    del flag, worklist
     torch.cuda.empty_cache()
     launches_2r = phase_two_rounds(dev)
     # each kernel's launches on its slice's main path: H1-H4 on the one-round
-    # 640x480 scene, H5-H6 on the two-round 1280x960 scene
+    # 640x480 scene, H5-H6 on the two-round 1280x960 scene, H7-H8 in the ops
+    # phase (set there)
     for r in rows:
-        r["launches"] = (launches_2r if r["name"] in ("gather_cols", "contract_lookup")
-                         else launches)[r["name"]]
+        if "launches" not in r:
+            r["launches"] = (launches_2r if r["name"] in ("gather_cols", "contract_lookup")
+                             else launches)[r["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"]
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
