@@ -8,8 +8,9 @@ PyTorch counterpart of ``apdmvs_tpu/classify.py``:
   accepted when the cost improves by > 0.1.
 
 The sweeps are evaluated in chunks of SWEEP_CHUNK candidates; each chunk's
-NCC term goes through volumes rebased on the chunk's mid step
-(ncc.sweep_cost_vector), its geometric term through the depth volumes.
+NCC term is one H2 launch over E (the reference rebases the volumes on the
+chunk's mid step first, which changes no cost), its geometric term goes
+through the depth volumes.
 """
 
 from __future__ import annotations
@@ -50,13 +51,10 @@ def _weighted_sweep_costs_batched(ctx, n_cam, depths, selected, view_weights, we
     w = geometry.dist_to_origin(ctx.cams.K[0], ctx.x, ctx.y, depths, n_cam[None])
     planes = torch.cat([n_cam[None].expand(depths.shape + (3,)), w[..., None]], dim=-1)
     wsel = torch.where(selected, view_weights, 0.0)
-    mid = SWEEP_CHUNK // 2
     out = []
     for c0 in range(0, S_pad, SWEEP_CHUNK):
         pl_chunk = planes[c0: c0 + SWEEP_CHUNK]
-        cv = ncc.sweep_cost_vector(
-            ctx, pl_chunk, depths[c0 + mid], cfg.strong_radius, cfg.strong_increment
-        )
+        cv = ncc.cost_vector(ctx, pl_chunk, cfg.strong_radius, cfg.strong_increment)
         if cfg.geom_consistency:
             cv = cv + cfg.geom_factor * ncc.geom_cost_vector(ctx, pl_chunk)
         out.append(torch.sum(wsel[:, None] * cv, dim=0)

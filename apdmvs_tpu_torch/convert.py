@@ -52,6 +52,4 @@ def to_volume_set(src, device="cpu") -> ncc.VolumeSet:
         geom_consts=_opt(src.geom_consts, device),
         C36=_opt(getattr(src, "C36", None), device),
         C9=_opt(getattr(src, "C9", None), device),
-        R=_opt(getattr(src, "R", None), device),
-        base_k=_opt(getattr(src, "base_k", None), device),
     )

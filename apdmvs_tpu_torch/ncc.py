@@ -4,9 +4,13 @@ PyTorch counterpart of the volume path of ``apdmvs_tpu/ncc.py``
 (reference: ComputeBilateralNCCOld APD.cu:530-614, cost vectors
 APD.cu:696-716, initial cost + top-k view seeding APD.cu:616-693, geometric
 consistency APD.cu:752-789). Every grid evaluation goes through the volume
-kernels of ``ops/``: the exact NCC (H2), optionally through a rebased volume
-(H3), and the geometric cost (H4). The direct-warp path, the point mode and
-the space-sharded volumes of the reference package are not ported.
+kernels of ``ops/``: the exact NCC (H2, every source view in one launch, read
+from E alone) and the geometric cost (H4). The reference package routes its
+NCC evaluations through rebased volumes, banded and full-K kernels
+(``apdmvs_tpu/ncc.py``); they all compute the one function that H2 computes
+from E, so the port has one NCC evaluator and builds no rebased volume. The
+direct-warp path, the point mode and the space-sharded volumes of the
+reference package are not ported.
 
 Costs are "1 - NCC" clamped to [0, 2]; degenerate patches and out-of-view
 warps cost 2. Index v of every per-view result is camera v; entry 0 (the
@@ -40,8 +44,6 @@ class VolumeSet(NamedTuple):
     C36 / C9: NCC cost volumes [V-1, K, PH, PW] bf16 of the weak machinery
       (ops/cost_volume.py): the strong window (radius 5, step 2) and the
       anchor window (radius 5, step 5), built for rounds that use APD.
-    R / base_k: volumes rebased on the current depth estimate
-      (ncc_volume.build_rebased_view), rebuilt once per iteration.
     """
 
     E: torch.Tensor
@@ -51,8 +53,6 @@ class VolumeSet(NamedTuple):
     geom_consts: Optional[torch.Tensor] = None
     C36: Optional[torch.Tensor] = None
     C9: Optional[torch.Tensor] = None
-    R: Optional[torch.Tensor] = None
-    base_k: Optional[torch.Tensor] = None
 
     @property
     def num_slices(self) -> int:
@@ -176,7 +176,8 @@ def add_depth_volumes(vs: VolumeSet, depth_maps: torch.Tensor, cams: Cameras,
 
 def _base_slice_map(vs: VolumeSet, depth: torch.Tensor) -> torch.Tensor:
     """Fractional slice of ``depth`` per pixel (K/2 where depth <= 0),
-    edge-padded onto the volume grid."""
+    edge-padded onto the volume grid: the base of the reference package's
+    rebased volumes (``ncc_volume.build_rebased_view``)."""
     u_min, du = vs.u_grid
     K = vs.num_slices
     H, W = depth.shape
@@ -186,18 +187,6 @@ def _base_slice_map(vs: VolumeSet, depth: torch.Tensor) -> torch.Tensor:
     k = torch.where(valid, torch.clamp(k, 0.0, K - 1.0), torch.full_like(k, K / 2.0))
     return _edge_pad(k, ncc_volume.PAD_Y, PH - H - ncc_volume.PAD_Y,
                      ncc_volume.PAD_X, PW - W - ncc_volume.PAD_X)
-
-
-def rebase_volume_set(vs: VolumeSet, depth: torch.Tensor) -> VolumeSet:
-    """Attach volumes R rebased on the slice of ``depth`` at every pixel
-    (one H3 launch per source view). Results of the cost kernels are exact
-    whatever the base; the rebase only makes their loads coalesce."""
-    base_k = _base_slice_map(vs, depth)
-    Rs, bf = [], None
-    for vi in range(vs.E.shape[0]):
-        Rv, bf = ncc_volume.build_rebased_view(vs.E[vi], base_k, vs.num_slices)
-        Rs.append(Rv)
-    return vs._replace(R=torch.stack(Rs), base_k=bf)
 
 
 def _pad_planes_cf(plane: torch.Tensor, Hp: int, Wp: int) -> torch.Tensor:
@@ -211,16 +200,11 @@ def _pad_planes_cf(plane: torch.Tensor, Hp: int, Wp: int) -> torch.Tensor:
     return out
 
 
-def _assemble(ctx: CostContext, outs, squeeze: bool, pad_value: float) -> torch.Tensor:
-    costs = torch.cat([torch.full_like(outs[0], pad_value)[None], torch.stack(outs)])
-    shape = (ctx.num_views,) + (1,) * (costs.ndim - 1)
-    costs = torch.where(ctx.src_valid.reshape(shape), costs, pad_value)
-    return costs[:, 0] if squeeze else costs
-
-
-def _grid_eval(ctx: CostContext, plane: torch.Tensor, per_view, pad_value=COST_MAX):
+def _grid_eval(ctx: CostContext, plane: torch.Tensor, evaluate, pad_value=COST_MAX):
     """Shared harness: pad the plane fields onto the kernel grid, evaluate
-    every source view, slice back to [V, (C,) H, W]."""
+    every source view (``evaluate(planes_cf) -> [V-1, C, Hp, Wp]``), slice
+    back and put COST_MAX (``pad_value``) at view 0 and the invalid views:
+    [V, (C,) H, W]."""
     vs = ctx.volumes
     if vs is None:
         raise ValueError("the port's cost path needs plane-sweep volumes")
@@ -230,41 +214,23 @@ def _grid_eval(ctx: CostContext, plane: torch.Tensor, per_view, pad_value=COST_M
     squeeze = plane.dim() == 3
     if squeeze:
         plane = plane[None]
-    planes_cf = _pad_planes_cf(plane, Hp, Wp)
-    outs = [per_view(v, planes_cf)[:, :H, :W] for v in range(1, ctx.num_views)]
-    return _assemble(ctx, outs, squeeze, pad_value)
+    outs = evaluate(_pad_planes_cf(plane, Hp, Wp))[:, :, :H, :W]
+    costs = torch.cat([torch.full_like(outs[0], pad_value)[None], outs])
+    shape = (ctx.num_views,) + (1,) * (costs.ndim - 1)
+    costs = torch.where(ctx.src_valid.reshape(shape), costs, pad_value)
+    return costs[:, 0] if squeeze else costs
 
 
 def cost_vector(ctx: CostContext, plane: torch.Tensor, radius: int, increment: int):
     """Per-view NCC costs [V, (C,) H, W] of plane fields [(C,) H, W, 4]
-    (ComputeMultiViewCostVectorOld, APD.cu:707-716), through the rebased
-    volumes when the context carries them."""
+    (ComputeMultiViewCostVectorOld, APD.cu:707-716): one H2 launch over all
+    source views. The reference package's rebased, full-K and sweep
+    evaluators (``cost_vector``, ``cost_vector_full``, ``sweep_cost_vector``
+    in ``apdmvs_tpu/ncc.py``) compute these same costs."""
     vs = ctx.volumes
-    K = vs.num_slices
-
-    def per_view(v, planes_cf):
-        if vs.R is not None:
-            return ncc_volume.ncc_rebased_cost_view(
-                vs.R[v - 1], vs.base_k, vs.E[v - 1], vs.ref_pad, planes_cf,
-                vs.consts[v - 1], K, radius=radius, increment=increment)
-        return ncc_volume.ncc_volume_cost_view(
-            vs.E[v - 1], vs.ref_pad, planes_cf, vs.consts[v - 1], K,
-            radius=radius, increment=increment)
-
-    return _grid_eval(ctx, plane, per_view)
-
-
-def cost_vector_full(ctx: CostContext, plane: torch.Tensor, radius: int, increment: int):
-    """Per-view NCC costs for hypotheses whose slice index is structurally
-    unbounded (the random refinement combos), read straight from E."""
-    vs = ctx.volumes
-
-    def per_view(v, planes_cf):
-        return ncc_volume.ncc_volume_cost_view_fullk(
-            vs.E[v - 1], vs.ref_pad, planes_cf, vs.consts[v - 1], vs.num_slices,
-            radius=radius, increment=increment)
-
-    return _grid_eval(ctx, plane, per_view)
+    return _grid_eval(ctx, plane, lambda planes_cf: ncc_volume.ncc_cost_views(
+        vs.E, vs.ref_pad, planes_cf, vs.consts, vs.num_slices,
+        radius=radius, increment=increment))
 
 
 def geom_cost_vector(ctx: CostContext, plane: torch.Tensor):
@@ -274,29 +240,14 @@ def geom_cost_vector(ctx: CostContext, plane: torch.Tensor):
     if vs.D is None:
         raise ValueError("a geometric pass needs depth volumes (add_depth_volumes)")
 
-    def per_view(v, planes_cf):
-        return ncc_volume.geom_volume_cost_view(
-            vs.D[v - 1], planes_cf, vs.geom_consts[v - 1], vs.num_slices)
+    def evaluate(planes_cf):
+        return torch.stack([
+            ncc_volume.geom_volume_cost_view(vs.D[v], planes_cf, vs.geom_consts[v],
+                                             vs.num_slices)
+            for v in range(vs.D.shape[0])
+        ])
 
-    return _grid_eval(ctx, plane, per_view, pad_value=GEOM_COST_MAX)
-
-
-def sweep_cost_vector(ctx: CostContext, plane: torch.Tensor, base_depth: torch.Tensor,
-                      radius: int, increment: int):
-    """Per-view NCC costs [V, C, H, W] of one classify sweep chunk: each
-    source volume is rebased (window SWEEP_J2) on the chunk's mid-step depth
-    field ``base_depth``, then evaluated through it."""
-    vs = ctx.volumes
-    K = vs.num_slices
-    base_k = _base_slice_map(vs, base_depth)
-
-    def per_view(v, planes_cf):
-        Rv, bf = ncc_volume.build_rebased_view(vs.E[v - 1], base_k, K, j2=ncc_volume.SWEEP_J2)
-        return ncc_volume.ncc_rebased_sweep_cost_view(
-            Rv, bf, vs.E[v - 1], vs.ref_pad, planes_cf, vs.consts[v - 1], K,
-            radius=radius, increment=increment)
-
-    return _grid_eval(ctx, plane, per_view)
+    return _grid_eval(ctx, plane, evaluate, pad_value=GEOM_COST_MAX)
 
 
 def initial_cost_and_views(ctx: CostContext, plane, radius: int, increment: int,

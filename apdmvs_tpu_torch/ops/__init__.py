@@ -4,11 +4,13 @@
 
 - H1 ``volume.build_volume`` (``build_volume.cu``): ``volume.py:123
   _build_kernel``;
-- H2 ``ncc_volume.ncc_cost`` (``ncc_cost.cu``): ``ncc_volume.py:353
+- H2 ``ncc_volume.ncc_cost_views`` (all source views) and
+  ``ncc_volume.ncc_cost`` (one view) (``ncc_cost.cu``): ``ncc_volume.py:353
   _kernel`` with ``:625 _fixup_kernel`` and ``:708 _band2_kernel``, ``:574
-  _kernel_fullk``, ``:205 _kernel_rb`` and ``:1659 _kernel_rb_offs``;
+  _kernel_fullk``, ``:205 _kernel_rb`` and ``:1659 _kernel_rb_offs``, all
+  read from E;
 - H3 ``ncc_volume.build_rebased_view`` (``rebase_view.cu``):
-  ``ncc_volume.py:1029 _rebase_kernel``;
+  ``ncc_volume.py:1029 _rebase_kernel`` (no default path calls it);
 - H4 ``ncc_volume.geom_volume_cost_view`` (``geom_cost.cu``):
   ``ncc_volume.py:1370 _geom_kernel``;
 - H5 ``cols.gather_cols`` (``gather_cols.cu``): ``cols.py:50

@@ -9,12 +9,15 @@ two-band ``:708 _band2_kernel`` under ``APDMVS_BAND2=1``, then the full-K
 ``:205 _kernel_rb`` and the auto-centred sweep bands ``:1659
 _kernel_rb_offs``. The bands, the fixups and the rebase exist because a TPU
 core cannot gather: it streams windows of slices and selects. Here one CUDA
-kernel, ``csrc/ncc_cost.cu`` (H2), loads the two slices of every sample by
-address and serves all four public entry points, so it is also the
-counterpart of the L2 chain; an optional rebased volume R (H3,
-``csrc/rebase_view.cu``, for ``:1029 _rebase_kernel``) only changes which
-array a sample reads. The geometric-consistency cost over depth volumes is
-H4 (``csrc/geom_cost.cu``, for ``:1370 _geom_kernel``).
+kernel, ``csrc/ncc_cost.cu`` (H2), loads the two slices of every sample of
+E by address and serves all four public entry points, so it is also the
+counterpart of the L2 chain; :func:`ncc_cost_views` evaluates every source
+view in one launch, and the cost harness (``ncc.py``) calls only that. The
+rebased volume R (H3, ``csrc/rebase_view.cu``, for ``:1029
+_rebase_kernel``) is a copy of part of E: H2 never reads it, and no path of
+the port builds it; :func:`build_rebased_view` stays as K4's counterpart.
+The geometric-consistency cost over depth volumes is H4
+(``csrc/geom_cost.cu``, for ``:1370 _geom_kernel``).
 
 Layout and padding follow the reference package so arrays compare index for
 index: volumes are [K, H+2*PAD_Y, W+2*PAD_X] over the padded pixel grid,
@@ -98,19 +101,23 @@ def _slice_index(k: torch.Tensor, K: int) -> torch.Tensor:
     return torch.nan_to_num(k, nan=0.0).to(torch.int64).clamp_(0, K - 1)
 
 
-def _check_common(E, ref_pad, planes, consts):
+def _check_common(E, ref_pad, planes, consts, num_slices: int, views: bool = False):
+    """Check the NCC inputs: E [K, PH, PW] and consts [1, 21], or with
+    ``views`` E [NV, K, PH, PW] and consts [NV, 1, 21]; K = num_slices."""
     if planes.dim() != 4 or planes.shape[1] != 4 or planes.dtype != torch.float32:
         raise ValueError("planes must be [C, 4, H, W] float32")
     C, _, H, W = planes.shape
     if H % NCC_TILE_H or W % TILE_W:
         raise ValueError(f"planes grid {H}x{W} must be padded to ({NCC_TILE_H}, {TILE_W})")
     PH, PW = H + 2 * PAD_Y, W + 2 * PAD_X
-    if E.dim() != 3 or tuple(E.shape[1:]) != (PH, PW):
-        raise ValueError(f"E must be [K, {PH}, {PW}], got {tuple(E.shape)}")
+    lead = E.shape[:1] if views else ()
+    if E.dim() != 3 + len(lead) or tuple(E.shape[-3:]) != (num_slices, PH, PW):
+        raise ValueError(f"E must be [{'NV, ' if views else ''}{num_slices}, {PH}, {PW}], "
+                         f"got {tuple(E.shape)}")
     if tuple(ref_pad.shape) != (PH, PW) or ref_pad.dtype != torch.float32:
         raise ValueError("ref_pad must be [PH, PW] float32")
-    if tuple(consts.shape) != (1, _NCONST) or consts.dtype != torch.float32:
-        raise ValueError("consts must be [1, 21] float32")
+    if tuple(consts.shape) != (*lead, 1, _NCONST) or consts.dtype != torch.float32:
+        raise ValueError(f"consts must be [{'NV, ' if views else ''}1, 21] float32")
     devs = {t.device for t in (E, ref_pad, planes, consts)}
     if len(devs) != 1:
         raise ValueError(f"inputs on several devices: {devs}")
@@ -193,54 +200,76 @@ _NCC_SIG = {
     "ncc_cost_launch": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
     ]
 }
+# H2 unrolls its window: 1 to 8 samples a side (radius 5 step 2 gives 6)
+MAX_WINDOW_SIDE = 8
 
 
-def ncc_cost(E_pad, ref_pad, planes, consts, num_slices: int, radius: int = 5,
-             increment: int = 2, R_pad=None, bf_pad=None) -> torch.Tensor:
-    """Kernel H2 wrapper: exact NCC costs [C, H, W]. With ``R_pad``/``bf_pad``
-    (from :func:`build_rebased_view`) samples inside the rebase window read
-    R; the result is identical either way."""
-    C, H, W = _check_common(E_pad, ref_pad, planes, consts)
-    if E_pad.shape[0] != num_slices:
-        raise ValueError("E slice count != num_slices")
-    if (R_pad is None) != (bf_pad is None):
-        raise ValueError("R_pad and bf_pad go together")
-    if E_pad.device.type == "cpu":
-        return ncc_volume_cost_ref(E_pad, ref_pad, planes, consts, num_slices,
-                                   radius=radius, increment=increment)
-    if E_pad.device.type != "cuda":
-        raise ValueError(f"unsupported device {E_pad.device}")
-    if E_pad.dtype != torch.bfloat16:
+def _launch_ncc(E, ref_pad, planes, consts, num_slices: int, radius: int,
+                increment: int) -> torch.Tensor:
+    """One H2 launch: E [NV, K, PH, PW] bf16, consts [NV, 1, 21] on a CUDA
+    card -> costs [NV, C, H, W]. The caller has checked the shapes."""
+    if E.device.type != "cuda":
+        raise ValueError(f"unsupported device {E.device}")
+    if E.dtype != torch.bfloat16:
         raise ValueError("the CUDA NCC kernel reads a bf16 volume")
-    j2 = 0
-    if R_pad is not None:
-        if R_pad.dtype != torch.bfloat16 or tuple(R_pad.shape[1:]) != tuple(E_pad.shape[1:]):
-            raise ValueError("R_pad must be bf16 [j2, PH, PW]")
-        if tuple(bf_pad.shape) != tuple(E_pad.shape[1:]) or bf_pad.dtype != torch.float32:
-            raise ValueError("bf_pad must be f32 [PH, PW]")
-        j2 = R_pad.shape[0]
-        R_pad, bf_pad = R_pad.contiguous(), bf_pad.contiguous()
-    E_pad, ref_pad = E_pad.contiguous(), ref_pad.contiguous()
+    NV, K, PH, PW = E.shape
+    if increment < 1 or not 0 <= radius <= PAD_Y:
+        raise ValueError(f"bad NCC window radius={radius} increment={increment}")
+    if len(range(-radius, radius + 1, increment)) > MAX_WINDOW_SIDE:
+        raise ValueError(f"the CUDA NCC kernel takes at most {MAX_WINDOW_SIDE} samples a side")
+    if K * PH * PW >= 2 ** 31:
+        raise ValueError("one view of E exceeds 32-bit indexing")
+    C, _, H, W = planes.shape
+    E, ref_pad = E.contiguous(), ref_pad.contiguous()
     planes, consts = planes.contiguous(), consts.contiguous()
-    out = torch.empty((C, H, W), dtype=torch.float32, device=E_pad.device)
+    out = torch.empty((NV, C, H, W), dtype=torch.float32, device=E.device)
     lib = _build.load("ncc_cost", _NCC_SIG)
     err = lib.ncc_cost_launch(
-        E_pad.data_ptr(), ref_pad.data_ptr(), planes.data_ptr(), consts.data_ptr(),
-        C, H, W, num_slices, radius, increment,
-        None if R_pad is None else R_pad.data_ptr(),
-        None if bf_pad is None else bf_pad.data_ptr(), j2,
-        out.data_ptr(), torch.cuda.current_stream(E_pad.device).cuda_stream,
+        E.data_ptr(), ref_pad.data_ptr(), planes.data_ptr(), consts.data_ptr(),
+        NV, C, H, W, num_slices, radius, increment,
+        out.data_ptr(), torch.cuda.current_stream(E.device).cuda_stream,
     )
     _build.check(err, "ncc_cost")
-    ncc_cost.launches += 1
     return out
 
 
+def ncc_cost(E_pad, ref_pad, planes, consts, num_slices: int, radius: int = 5,
+             increment: int = 2) -> torch.Tensor:
+    """Kernel H2 wrapper, one source view: exact NCC costs [C, H, W] from
+    E_pad [K, PH, PW] and consts [1, 21]."""
+    _check_common(E_pad, ref_pad, planes, consts, num_slices)
+    if E_pad.device.type == "cpu":
+        return ncc_volume_cost_ref(E_pad, ref_pad, planes, consts, num_slices,
+                                   radius=radius, increment=increment)
+    out = _launch_ncc(E_pad[None], ref_pad, planes, consts[None], num_slices, radius, increment)
+    ncc_cost.launches += 1
+    return out[0]
+
+
 ncc_cost.launches = 0
+
+
+def ncc_cost_views(E, ref_pad, planes, consts, num_slices: int, radius: int = 5,
+                   increment: int = 2) -> torch.Tensor:
+    """Kernel H2 wrapper, every source view in one launch: E [NV, K, PH, PW]
+    bf16, consts [NV, 1, 21] -> exact NCC costs [NV, C, H, W]. Its plain
+    version is :func:`ncc_volume_cost_ref` of each view."""
+    _check_common(E, ref_pad, planes, consts, num_slices, views=True)
+    if E.device.type == "cpu":
+        return torch.stack([
+            ncc_volume_cost_ref(E[v], ref_pad, planes, consts[v], num_slices,
+                                radius=radius, increment=increment)
+            for v in range(E.shape[0])
+        ])
+    out = _launch_ncc(E, ref_pad, planes, consts, num_slices, radius, increment)
+    ncc_cost_views.launches += 1
+    return out
+
+
+ncc_cost_views.launches = 0
 
 
 def ncc_volume_cost_view(E_pad, ref_pad, planes, consts, num_slices: int,
@@ -271,18 +300,19 @@ def ncc_volume_cost_view_fullk(E_pad, ref_pad, planes, consts, num_slices: int,
 
 def ncc_rebased_cost_view(R_pad, bf_pad, E_pad, ref_pad, planes, consts,
                           num_slices: int, radius: int = 5, increment: int = 2):
-    """Exact NCC costs fetched through the rebased volume (propagation,
-    combos 3-4, recost)."""
-    return ncc_cost(E_pad, ref_pad, planes, consts, num_slices, radius, increment,
-                    R_pad=R_pad, bf_pad=bf_pad)
+    """Exact NCC costs of the reference package's rebased entry (propagation,
+    combos 3-4, recost), with its signature. ``R_pad`` and ``bf_pad`` (from
+    :func:`build_rebased_view`) are not read: R is a copy of part of E, and
+    H2 computes the same costs from E alone."""
+    return ncc_cost(E_pad, ref_pad, planes, consts, num_slices, radius, increment)
 
 
 def ncc_rebased_sweep_cost_view(R_pad, bf_pad, E_pad, ref_pad, planes, consts,
                                 num_slices: int, radius: int = 5, increment: int = 2):
-    """Exact NCC costs of a classify sweep chunk, fetched through the volume
-    rebased on the chunk's mid step."""
-    return ncc_cost(E_pad, ref_pad, planes, consts, num_slices, radius, increment,
-                    R_pad=R_pad, bf_pad=bf_pad)
+    """Exact NCC costs of a classify sweep chunk (the reference package's
+    entry through the volume rebased on the chunk's mid step), with its
+    signature; like :func:`ncc_rebased_cost_view`, computed from E alone."""
+    return ncc_cost(E_pad, ref_pad, planes, consts, num_slices, radius, increment)
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,6 @@ reference's (APD.cu:2386-2495):
   [weak prep: worklist, anchors, reliability demotion, resident columns]
   RandomInitialization (FIRST_INIT) or recost of the loaded state
   for iter in range(max_iterations):
-      rebase the volumes on the current depth
       strong black half-sweep ; strong red half-sweep
       [weak sweep: RANSAC fit planes, candidates, refinement]
   planes -> (world normal, depth)
@@ -17,6 +16,12 @@ reference's (APD.cu:2386-2495):
 The weak stages (``weak.py``) run on passes with ``use_APD`` over a
 worklist of the prior's WEAK pixels whose capacity the caller sizes
 (``scene._bucket_capacity``).
+
+A divergence of design, not of results: the reference rebases its volumes
+on the current depth before the recost and every iteration
+(``apdmvs_tpu/pipeline.py:122-168``), so its TPU kernels read a narrow band
+of slices. The port's NCC kernel reads E by address (``ncc.py``) and
+builds no rebased volume; the costs are the same.
 """
 
 from __future__ import annotations
@@ -86,26 +91,19 @@ def patchmatch_pass(
             ctx, prior.depth, pixel_state, weak_xy, draws, cfg, ransac_threshold)
         wcols = weak.build_weak_cols(ctx, weak_xy, anchors)
 
-    def rebased(planes_):
-        """Context with volumes rebased on planes_' depth: exact results,
-        coalesced loads (ops/ncc_volume.py)."""
-        d = geometry.depth_from_plane(cams.K[0], planes_, ctx.x, ctx.y)
-        return ctx._replace(volumes=ncc.rebase_volume_set(volumes, d))
-
     # RandomInitialization (APD.cu:806-835)
     if cfg.state == RunState.FIRST_INIT:
         u_depth, g_normal = draws.init_plane()
         planes = hypotheses.random_plane(
             u_depth, g_normal, cams.K[0], ctx.x, ctx.y, ctx.dirs, depth_min, depth_max
         )
-        # no rebase for the random seed: its depth field is per-pixel random
         costs, selected = ncc.initial_cost_and_views(
             ctx, planes, cfg.strong_radius, cfg.strong_increment, cfg.top_k
         )
     else:
         planes = geometry.depth_normal_to_planes(cams, prior.depth, prior.normal_world, H, W)
         costs, selected = ncc.recost_selected_views(
-            rebased(planes), planes, prior.selected, cfg.strong_radius, cfg.strong_increment
+            ctx, planes, prior.selected, cfg.strong_radius, cfg.strong_increment
         )
 
     V = ctx.num_views
@@ -114,11 +112,10 @@ def patchmatch_pass(
         view_weights=torch.zeros((V, H, W), dtype=torch.float32, device=cams.device),
     )
     for it in range(cfg.max_iterations):
-        ctx_it = rebased(st.planes)
-        st = propagation.propagate_strong_color(ctx_it, st, pixel_state, it, draws, cfg, 0)
-        st = propagation.propagate_strong_color(ctx_it, st, pixel_state, it, draws, cfg, 1)
+        st = propagation.propagate_strong_color(ctx, st, pixel_state, it, draws, cfg, 0)
+        st = propagation.propagate_strong_color(ctx, st, pixel_state, it, draws, cfg, 1)
         if weak_xy is not None:
-            st = weak.propagate_weak(ctx_it, st, pixel_state, weak_xy, anchors, it, draws, cfg,
+            st = weak.propagate_weak(ctx, st, pixel_state, weak_xy, anchors, it, draws, cfg,
                                      wcols)
 
     # readout: plane -> depth + world normal (APD.cu:1587-1602)

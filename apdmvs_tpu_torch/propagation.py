@@ -210,10 +210,11 @@ def propagate_strong_color(ctx: CostContext, st: StrongState, pixel_state, iter_
     )
     w5 = geometry.dist_to_origin(K0, ctx.x, ctx.y, depths5, normals5)
     planes5 = torch.cat([normals5, w5[..., None]], dim=-1)  # [5, H, W, 4]
-    # combos 0-2 carry a per-pixel random depth or normal: read straight
-    # from E; combos 3-4 stay near the current estimate: through R
+    # combos 0-2 carry a per-pixel random depth or normal, combos 3-4 stay
+    # near the current estimate; the reference evaluates them with its full-K
+    # and rebased kernels, which compute the same costs that H2 does from E
     cv_b = ncc.cost_vector(ctx, planes5[3:5], r, inc)
-    cv_r = ncc.cost_vector_full(ctx, planes5[0:3], r, inc)
+    cv_r = ncc.cost_vector(ctx, planes5[0:3], r, inc)
     cv5 = torch.cat([cv_r, cv_b], dim=1)  # [V, 5, H, W]
     c5 = torch.sum(weights[:, None] * cv5, dim=0) / torch.clamp(weight_norm[None], min=1e-30)
     d_chk = geometry.depth_from_plane(K0, planes5, ctx.x, ctx.y)

@@ -11,21 +11,26 @@ and no ``ok`` line is printed:
 1. build: compiles every kernel source under ``apdmvs_tpu_torch/csrc`` (one
    nvcc per source, all at once) and prints the build seconds and each
    kernel's ``-Xptxas -v`` register / spill summary.
-2. kernels: holds each kernel of the one-round path (H1 build_volume, H2 ncc_cost, H3
-   rebase_view, H4 geom_cost) against its plain PyTorch version on the card
-   at the shapes of the main path (640x480, 5 views, K=160: C=9
-   propagation through R, C=3 straight from E, C=8 sweep chunk through a
-   j2=49 rebase, C=8 geometric), with the stated tolerance, and times
-   kernel, plain version and, where one PyTorch call computes the same
-   function, that call (CUDA events, warmed up).
-   H2 is also timed at C=1 straight from E (its K2 entry point).
+2. kernels: holds each kernel of the one-round path (H1 build_volume, H2
+   ncc_cost, H4 geom_cost) and H3 rebase_view against its plain PyTorch
+   version on the card at the shapes of the main path (640x480, 5 views,
+   K=160), with the stated tolerance: H1 on E (bf16) and D (trunc f32); H2
+   from E per view at C=9 (propagation), C=3 (random depths, full-K), C=8
+   (a sweep chunk) and C=1 (the K2 entry point), then over all four source
+   views at C=9 through ``ncc_cost_views`` (what the main path launches),
+   with planes the folded slice coordinate cannot take (w = 0, NaN, an
+   infinite normal); H3 at j2=25 and 49; H4 at C=8. Times kernel, plain
+   version and, where one PyTorch call computes the same function, that
+   call (``F.grid_sample`` for H1): H1, H2 and H3 in device time (20 calls
+   replayed from a CUDA graph, warmed up) and per call (CUDA events).
 3. main path: renders the 5-view 640x480 ring scene, writes it as a
    dataset, and runs ``scene.run_scene(device="cuda")``: one round of 4
    passes x 5 views (FIRST_INIT + 3 geometric REFINE_ITER) and ETH fusion.
    The launch counters are zeroed just before and read just after; every
-   kernel of that path (H1-H4) must have launched. Checks: median relative
-   depth error on interior pixels < 0.01 against ground truth, > 1000 fused
-   points, median point-to-plane distance < 0.05.
+   kernel of that path (H1, H2 through ``ncc_cost_views``, H4) must have
+   launched, and H3 and the one-view H2 wrapper must not. Checks: median
+   relative depth error on interior pixels < 0.01 against ground truth,
+   > 1000 fused points, median point-to-plane distance < 0.05.
 4. cols: holds H5 gather_cols (bit-exact) and H6 contract_lookup (tent
    within 1.2e-7 with NaN where the plain version has NaN, nearest
    bit-exact; B=10 and 5, lanes with k NaN, +-inf, < 0, > K-1) against
@@ -38,11 +43,13 @@ and no ``ok`` line is printed:
    at k = depth_to_slice of view 0's ground truth, with lanes of k NaN,
    +-inf, < 0, > K-1, K-1 and integers; H7 gather_rows on the
    position-major tables of C9 at the anchors and of D at the weak pixels,
-   gather_rows_sorted on C36's at the weak pixels sorted; and H2 on K10's
+   gather_rows_sorted on C36's at the weak pixels sorted; H2 on K10's
    case (the ground-truth plane and a random-depth plane in one candidate
-   group). H7 and H8 must be bit-exact with their plain versions (NaN
-   where the plain version has NaN) and H7 equal to H5's columns, H2 within
-   1e-4; E sampled at k must stay within the thresholds of
+   group); and H3 rebase_view (j2=25 and 49, around view 0's ground truth)
+   with H2's two rebased entries, which compute from E. H3, H7 and H8 must
+   be bit-exact with their plain versions (NaN where the plain version has
+   NaN), H7 equal to H5's columns, H2 within 1e-4 and its rebased entries
+   equal to it; E sampled at k must stay within the thresholds of
    tests/test_volume.py:87-90 of the direct warp. Times kernel, plain
    version and library yardstick (index_select, 5-D grid_sample) in device
    time (20 calls replayed from a CUDA graph), and the kernel's wrapper
@@ -51,18 +58,20 @@ and no ``ok`` line is printed:
    with geometric consistency and the APD weak machinery at 640x480x5
    (prior from the ground truth, a 19200-pixel weak box, worklist 24576,
    ransac threshold 0.00875): wall ms of 5 passes after a warm-up, the
-   launches of H1-H6 in one pass; median relative depth error < 0.01 over
+   launches of the kernels in one pass; median relative depth error < 0.01 over
    interior pixels and over the weak box.
 7. two rounds: a 1280x960 five-view scene with a textureless window
    through ``scene.run_scene``: two rounds (40 view-passes), the second
-   with the weak machinery, then ETH fusion. Every kernel H1-H6 must have
+   with the weak machinery, then ETH fusion. H1, H2, H4, H5, H6 must have
    launched and > 1000 weak pixels must enter round 1's REFINE_INIT pass of
    view 0. Checks: per-view median relative depth error < 0.01 on interior
    pixels, < 0.02 on view 0's textureless core, > 1000 fused points and
-   median point-to-plane distance < 0.05.
+   median point-to-plane distance < 0.05. H3 and the one-view H2 wrapper
+   must not have launched.
 
-Then it prints the ``kernels`` JSON line (launches: H1-H4 from phase 3,
-H5-H6 from phase 7, H7-H8 from phase 5), the card's name and power limit, and last
+Then it prints the ``kernels`` JSON line (launches: H1, H2 and H4 from
+phase 3, H5-H6 from phase 7, H3, H7 and H8 from phase 5; times in device
+time where the script takes it), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the rest
 of the repository beside it, it fails before printing any result.
 """
@@ -84,11 +93,16 @@ sys.path.insert(0, ROOT)
 # outside the tensor cores; the kernels do f32 arithmetic on CUDA cores.
 MEM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
-# f32 operations counted per output of each kernel, read off its source:
-# H1 ~30 (warp, divide, clamp, bilinear); H2 30 per window sample (two pixel
-# directions, plane depth, slice index, lerp, five sums) + 40 (epilogue and
-# centre warp); H4 ~60 (depth, slice, warp, reprojection, error).
-OPS_H1, OPS_H2_SAMPLE, OPS_H2_OUT, OPS_H4 = 30, 30, 40, 60
+# f32 operations of each kernel's function, counted off its plain version
+# (the work the function needs, not the kernel's instructions):
+# H1 22 per output (3 adds of the warp, 2 divisions, clamp 4, floor 2,
+# weights 2, bilinear 9; M dirs is per pixel, b u per slice);
+# H2 17 per window sample of an output (slice coordinate from the plane 4,
+# clamp 2, floor and fraction 2, lerp 4, the three sums s, ss, rs 5), 46 per
+# output (folding the plane 6, moments, epilogue and centre warp 40) and 3
+# per window sample of a pixel (the reference sums r, rr, shared by every
+# view and field); H4 ~60 per output (depth, slice, warp, reprojection, error).
+OPS_H1, OPS_H2_SAMPLE, OPS_H2_OUT, OPS_H2_REF, OPS_H4 = 22, 17, 46, 3, 60
 
 W, H, V, K = 640, 480, 5, 160
 
@@ -187,18 +201,27 @@ def ncc_touched(planes_cf, consts, num_slices, PH, PW, radius=5, increment=2):
     return int(seen.sum())
 
 
+def h2_bound_views(planes_cf, views, touched, samples=36):
+    """H2's bound for these fields over ``views`` source views: the NCC
+    function's own traffic (the ``touched`` elements of E that the fields'
+    windows read, the reference image under the windows, planes in, costs
+    out) or its f32 operations, the larger."""
+    C, _, Hp, Wp = planes_cf.shape
+    nbytes = (touched * 2 + (Hp + 10) * (Wp + 10) * 4 + C * 4 * Hp * Wp * 4
+              + views * C * Hp * Wp * 4)
+    ops = (views * C * Hp * Wp * (samples * OPS_H2_SAMPLE + OPS_H2_OUT)
+           + Hp * Wp * samples * OPS_H2_REF)
+    return bound(nbytes, ops)
+
+
 def h2_bound(planes_cf, consts):
-    """H2's bound for these fields: the NCC function's own traffic (the
-    elements of E that the fields' windows touch (R and bf only copy E), the
-    reference image under the windows, planes in, costs out) or its f32
-    operations, the larger; and the elements touched."""
+    """H2's bound for these fields against one source view, and the
+    elements of E touched."""
     from apdmvs_tpu_torch.ops import ncc_volume as nv
 
-    C, _, Hp, Wp = planes_cf.shape
+    _, _, Hp, Wp = planes_cf.shape
     touched = ncc_touched(planes_cf, consts, K, Hp + 2 * nv.PAD_Y, Wp + 2 * nv.PAD_X)
-    nbytes = (touched * 2 + (Hp + 10) * (Wp + 10) * 4 + C * 4 * Hp * Wp * 4
-              + C * Hp * Wp * 4)
-    return bound(nbytes, C * Hp * Wp * (36 * OPS_H2_SAMPLE + OPS_H2_OUT)), touched
+    return h2_bound_views(planes_cf, 1, touched), touched
 
 
 def geom_touched(planes_cf, gconsts, num_slices):
@@ -233,8 +256,13 @@ def phase_build():
     log(f"build: {len(results)} kernel libraries compiled in "
         f"{time.perf_counter() - t0:.2f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
     for name, (secs, out) in results.items():
-        regs = [ln.strip() for ln in out.splitlines()
-                if re.search(r"registers|spill", ln)]
+        regs = []
+        for ln in out.splitlines():
+            entry = re.search(r"Compiling entry function '(\w+)'", ln)
+            if entry:
+                regs.append(entry.group(1))
+            elif re.search(r"registers|spill", ln):
+                regs.append(ln.split("ptxas info    :")[-1].strip())
         log(f"build: {name} {secs:.2f} s; ptxas: " + " | ".join(regs))
 
 
@@ -256,6 +284,21 @@ def make_inputs(dev):
     return cams_s, planes_s, images, depths, normals, cams
 
 
+def check_h2(out, ref, name):
+    """Max abs difference of H2 from its plain version on the lanes where
+    the plain version is not NaN; raises unless it is < 1e-4 and the NaN
+    lanes agree."""
+    import torch
+
+    nan = torch.isnan(ref)
+    same_nan = torch.equal(torch.isnan(out), nan)
+    err = float((out[~nan] - ref[~nan]).abs().max())
+    if not (same_nan and err < 1e-4):
+        raise AssertionError(f"H2 disagrees with its plain version ({name}: {err:.3e}, "
+                             f"NaN lanes agree {same_nan})")
+    return err, int(nan.sum())
+
+
 def phase_kernels(dev, inputs):
     import numpy as np
     import torch
@@ -269,7 +312,8 @@ def phase_kernels(dev, inputs):
     imgs = torch.as_tensor(images, device=dev)
     dm = torch.as_tensor(depths, device=dev)
     wc = geometry.warp_constants(cams)
-    u_min, du = vol.inv_depth_grid(1.2, 9.6, K)
+    # on the card, so that a CUDA graph can capture the wrappers' packing
+    u_min, du = (v.to(dev) for v in vol.inv_depth_grid(1.2, 9.6, K))
     Hp, Wp = ncc._ceil_to(H, nv.NCC_TILE_H), ncc._ceil_to(W, nv.TILE_W)
     PH, PW = Hp + 2 * nv.PAD_Y, Wp + 2 * nv.PAD_X
     rows = []
@@ -279,17 +323,28 @@ def phase_kernels(dev, inputs):
     E = vol.build_volume(imgs[1], *args, pad_y=nv.PAD_Y, pad_x=nv.PAD_X)
     E_ref = vol.build_volume_padded(imgs[1], *args, pad_y=nv.PAD_Y, pad_x=nv.PAD_X)
     ulps = int(bf16_ulps(E, E_ref).max())
+    exact_e = torch.equal(E.view(torch.int16), E_ref.view(torch.int16))
     D = vol.build_volume(dm[1], *args, pad_y=0, pad_x=0, dtype=torch.float32, trunc=True)
     D_ref = vol.build_volume_padded(dm[1], *args, pad_y=0, pad_x=0,
                                     dtype=torch.float32, trunc=True)
     eq_trunc = float((D == D_ref).float().mean())
     err_h1 = float((E.float() - E_ref.float()).abs().max())
     ok = ulps <= 1 and eq_trunc >= 0.999
-    log(f"kernel H1 build_volume: bilinear max {ulps} bf16 ulp (tol 1), max abs {err_h1:.3e}; "
-        f"trunc {100 * eq_trunc:.4f}% equal (tol >= 99.9%) -> {'ok' if ok else 'FAIL'}")
+    log(f"kernel H1 build_volume: bilinear max {ulps} bf16 ulp (tol 1), bit-exact {exact_e}, "
+        f"max abs {err_h1:.3e}; trunc {100 * eq_trunc:.4f}% equal (tol >= 99.9%) -> "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("H1 disagrees with its plain version")
-    ms = time_ms(lambda: vol.build_volume(imgs[1], *args, pad_y=nv.PAD_Y, pad_x=nv.PAD_X), 10)
+    del E_ref, D_ref
+
+    def h1_e():
+        return vol.build_volume(imgs[1], *args, pad_y=nv.PAD_Y, pad_x=nv.PAD_X)
+
+    def h1_d():
+        return vol.build_volume(dm[1], *args, pad_y=0, pad_x=0, dtype=torch.float32, trunc=True)
+
+    call = time_ms(h1_e, 10)
+    dev_e, dev_d = graph_ms(h1_e, 10), graph_ms(h1_d, 10)
     plain = time_ms(lambda: vol.build_volume_padded(imgs[1], *args, pad_y=nv.PAD_Y,
                                                     pad_x=nv.PAD_X), 2, 1)
     # library yardstick: grid_sample (bilinear, border) on the precomputed
@@ -303,17 +358,29 @@ def phase_kernels(dev, inputs):
     gx = (q[..., 0] / q[..., 2]) / (W - 1) * 2 - 1
     gy = (q[..., 1] / q[..., 2]) / (H - 1) * 2 - 1
     grid = torch.stack([gx, gy], -1).reshape(1, K * PH, PW, 2)
-    lib = time_ms(lambda: F.grid_sample(imgs[1][None, None], grid, mode="bilinear",
-                                        padding_mode="border", align_corners=True), 10)
+    del q, gx, gy
+
+    def library():
+        return F.grid_sample(imgs[1][None, None], grid, mode="bilinear",
+                             padding_mode="border", align_corners=True)
+
+    lib_call = time_ms(library, 10)
+    lib = graph_ms(library, 10)
+    del grid
     b_ms, b_by = bound(H * W * 4 + K * PH * PW * 2, K * PH * PW * OPS_H1)
+    b_d, b_d_by = bound(H * W * 4 + K * Hp * Wp * 4, K * Hp * Wp * OPS_H1)
     rows.append(dict(name="build_volume", route="cuda",
                      source="apdmvs_tpu_torch/csrc/build_volume.cu",
-                     replaces="apdmvs_tpu/ops/volume.py:123", max_abs_err=err_h1, ms=ms,
+                     replaces="apdmvs_tpu/ops/volume.py:123", max_abs_err=err_h1, ms=dev_e,
                      plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib))
-    log(f"kernel H1 build_volume: {ms:.3f} ms (plain {plain:.3f}, grid_sample {lib:.3f}, "
-        f"bound {b_ms:.4f} by {b_by}) at K={K} {PH}x{PW} bf16")
+    log(f"kernel H1 build_volume E bf16 [{K}, {PH}, {PW}]: device {dev_e:.4f} ms, {call:.4f} ms "
+        f"a call (plain {plain:.3f}; grid_sample device {lib:.4f}, {lib_call:.4f} a call; "
+        f"bound {b_ms:.4f} by {b_by})")
+    log(f"kernel H1 build_volume D trunc f32 [{K}, {Hp}, {Wp}]: device {dev_d:.4f} ms "
+        f"(bound {b_d:.4f} by {b_d_by})")
 
-    # ---- H3 rebase_view around the ground-truth depth of view 0, j2=25 and 49
+    # ---- H3 rebase_view around the ground-truth depth of view 0, j2=25 and
+    # 49 (K4's counterpart; no default path calls it, the ops phase does)
     vs = ncc.VolumeSet(E=E[None], consts=nv.pack_consts(cams.K[0], wc.M[1], wc.b[1], u_min,
                                                          du, W, H)[None],
                        ref_pad=ncc._edge_pad(imgs[0], nv.PAD_Y, nv.PAD_Y + Hp - H,
@@ -331,25 +398,24 @@ def phase_kernels(dev, inputs):
             "(tol: bit-exact)")
         if not exact:
             raise AssertionError("H3 disagrees with its plain version")
-    R25, bf25 = nv.build_rebased_view(E, base_k, K)
-    ms = time_ms(lambda: nv.build_rebased_view(E, base_k, K), 20)
+    del R, bf, R_ref, bf_ref
+    ms = graph_ms(lambda: nv.build_rebased_view(E, base_k, K))
+    call = time_ms(lambda: nv.build_rebased_view(E, base_k, K), 20)
     plain = time_ms(lambda: nv.build_rebased_view_ref(E, base_k, K), 3, 1)
     J = (nv.J2_REBASE - 1) // 2
     idx = (torch.clamp(torch.round(base_k), J, K - 1 - J).long()[None]
            + torch.arange(nv.J2_REBASE, device=dev)[:, None, None] - J)
-    lib = time_ms(lambda: torch.gather(E, 0, idx), 20)
+    lib = graph_ms(lambda: torch.gather(E, 0, idx))
     b_ms, b_by = bound(2 * nv.J2_REBASE * PH * PW * 2 + 2 * PH * PW * 4, 0.0)
     rows.append(dict(name="rebase_view", route="cuda", source="apdmvs_tpu_torch/csrc/rebase_view.cu",
                      replaces="apdmvs_tpu/ops/ncc_volume.py:1029", max_abs_err=err_h3, ms=ms,
                      plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib))
-    log(f"kernel H3 rebase_view: {ms:.3f} ms (plain {plain:.3f}, torch.gather {lib:.3f}, "
-        f"bound {b_ms:.4f} by {b_by}) at j2=25 {PH}x{PW}")
-    log(f"kernel H3 rebase_view: device {graph_ms(lambda: nv.build_rebased_view(E, base_k, K)):.4f}"
-        f" ms, torch.gather device {graph_ms(lambda: torch.gather(E, 0, idx)):.4f} ms")
+    log(f"kernel H3 rebase_view j2=25 {PH}x{PW}: device {ms:.4f} ms, {call:.4f} ms a call "
+        f"(plain {plain:.3f}, torch.gather device {lib:.4f}, bound {b_ms:.4f} by {b_by})")
+    del idx
 
-    # ---- H2 ncc_cost at the main path's batch shapes
+    # ---- H2 ncc_cost at the main path's batch shapes, all from E
     x, y = geometry.pixel_grid(H, W, dev)
-    dirs = geometry.pixel_dirs(cams.K[0], x, y)
     n_cam = geometry.normal_world_to_cam(cams.R[0], torch.as_tensor(normals[0], device=dev))
     gt = torch.where(dm[0] > 0, dm[0], torch.full_like(dm[0], 4.0))
 
@@ -364,77 +430,89 @@ def phase_kernels(dev, inputs):
         return plane_field(d, n / torch.linalg.vector_norm(n, dim=-1, keepdim=True))
 
     rand_depth = torch.as_tensor(rs.uniform(1.2, 9.6, (3, H, W)), device=dev, dtype=torch.float32)
+    # per view, as the parent's cases: C=9 propagation (formerly through R,
+    # j2=25), C=3 random depths (full-K), a C=8 sweep chunk (formerly through
+    # R, j2=49), C=1 (FIRST_INIT seeding, LocalRefine, the K2 entry point)
     cases = {
-        "C9_propagation_R25": (torch.stack([noisy(0.01, s) for s in range(9)]), (R25, bf25)),
-        "C3_fullk_E": (torch.stack([plane_field(rand_depth[i], n_cam) for i in range(3)]), None),
-        "C8_sweep_R49": (torch.stack([plane_field(gt * (1 + 0.004 * (s - 4)), n_cam)
-                                      for s in range(8)]), "sweep"),
+        "C9_propagation": torch.stack([noisy(0.01, s) for s in range(9)]),
+        "C3_fullk_random": torch.stack([plane_field(rand_depth[i], n_cam) for i in range(3)]),
+        "C8_sweep": torch.stack([plane_field(gt * (1 + 0.004 * (s - 4)), n_cam)
+                                 for s in range(8)]),
+        "C1_E": noisy(0.01, 9)[None],
     }
-
-    err_h2, t_h2 = 0.0, {}
+    err_h2 = 0.0
     consts = vs.consts[0]
-    for name, (pl, via) in cases.items():
+    for name, pl in cases.items():
         planes_cf = ncc._pad_planes_cf(pl, Hp, Wp)
-        if via == "sweep":
-            base = ncc._base_slice_map(vs, gt)
-            via = nv.build_rebased_view(E, base, K, j2=nv.SWEEP_J2)
-        R_, bf_ = via if via is not None else (None, None)
-        out = nv.ncc_cost(E, vs.ref_pad, planes_cf, consts, K, R_pad=R_, bf_pad=bf_)
+        cases[name] = planes_cf
+        out = nv.ncc_cost(E, vs.ref_pad, planes_cf, consts, K)
         ref = nv.ncc_volume_cost_ref(E, vs.ref_pad, planes_cf, consts, K)
-        fin = bool(torch.isfinite(ref).all())
-        err = float((out - ref).abs().max())
+        err, _ = check_h2(out, ref, name)
         err_h2 = max(err_h2, err)
-        if not err < 1e-4:
-            raise AssertionError(f"H2 disagrees with its plain version ({name}: {err:.3e})")
-        ms = time_ms(lambda: nv.ncc_cost(E, vs.ref_pad, planes_cf, consts, K, R_pad=R_,
-                                         bf_pad=bf_), 10)
+
+        def h2():
+            return nv.ncc_cost(E, vs.ref_pad, planes_cf, consts, K)
+
+        ms, call = graph_ms(h2), time_ms(h2, 10)
+        plain = time_ms(lambda: nv.ncc_volume_cost_ref(E, vs.ref_pad, planes_cf, consts, K), 2, 1)
         (b_ms, b_by), touched = h2_bound(planes_cf, consts)
-        log(f"kernel H2 ncc_cost {name}: max abs {err:.3e} (tol 1e-4), plain finite {fin}; "
-            f"{ms:.3f} ms (bound {b_ms:.4f} by {b_by}; E elements touched {touched}, "
+        log(f"kernel H2 ncc_cost {name}: max abs {err:.3e} (tol 1e-4), plain finite "
+            f"{bool(torch.isfinite(ref).all())}; device {ms:.4f} ms, {call:.4f} ms a call (plain "
+            f"{plain:.3f}; bound {b_ms:.4f} by {b_by}; E elements touched {touched}, "
             f"{touched / (PH * PW):.2f} slices a pixel)")
-        t_h2[name] = (planes_cf, ms, b_ms, b_by)
-    # C=1 straight from E: FIRST_INIT seeding, LocalRefine's current cost and
-    # the weak sweep's cost rewrite (the K2 entry point)
-    pl1 = ncc._pad_planes_cf(noisy(0.01, 9)[None], Hp, Wp)
-    out = nv.ncc_cost(E, vs.ref_pad, pl1, consts, K)
-    err = float((out - nv.ncc_volume_cost_ref(E, vs.ref_pad, pl1, consts, K)).abs().max())
+
+    # all four source views in one launch, C=9: what the main path launches
+    Es = torch.stack([E] + [vol.build_volume(imgs[v], wc.M[v], wc.b[v], cams.K[0], Hp, Wp,
+                                             u_min, du, K, pad_y=nv.PAD_Y, pad_x=nv.PAD_X)
+                            for v in range(2, V)])
+    consts_v = torch.stack([nv.pack_consts(cams.K[0], wc.M[v], wc.b[v], u_min, du, W, H)
+                            for v in range(1, V)])
+    pl9 = cases["C9_propagation"]
+
+    def h2_views(planes_cf):
+        return nv.ncc_cost_views(Es, vs.ref_pad, planes_cf, consts_v, K)
+
+    def plain_views(planes_cf):
+        return torch.stack([nv.ncc_volume_cost_ref(Es[v], vs.ref_pad, planes_cf, consts_v[v], K)
+                            for v in range(V - 1)])
+
+    err, _ = check_h2(h2_views(pl9), plain_views(pl9), "C9 over four views")
     err_h2 = max(err_h2, err)
-    if not err < 1e-4:
-        raise AssertionError(f"H2 disagrees with its plain version (C1_E: {err:.3e})")
-    ms1 = time_ms(lambda: nv.ncc_cost(E, vs.ref_pad, pl1, consts, K), 20)
-    plain1 = time_ms(lambda: nv.ncc_volume_cost_ref(E, vs.ref_pad, pl1, consts, K), 3, 1)
-    (b1, by1), touched = h2_bound(pl1, consts)
-    log(f"kernel H2 ncc_cost C1_E: max abs {err:.3e} (tol 1e-4); {ms1:.3f} ms (plain "
-        f"{plain1:.3f}; bound {b1:.4f} by {by1}; E elements touched {touched})")
-    log(f"kernel H2 ncc_cost C1_E: device "
-        f"{graph_ms(lambda: nv.ncc_cost(E, vs.ref_pad, pl1, consts, K)):.4f} ms")
-    for name in ("C3_fullk_E", "C8_sweep_R49"):
-        pl = t_h2[name][0]
-        plain_c = time_ms(lambda: nv.ncc_volume_cost_ref(E, vs.ref_pad, pl, consts, K), 2, 1)
-        log(f"kernel H2 ncc_cost {name}: plain {plain_c:.3f} ms")
-    planes_cf, ms, b_ms, b_by = t_h2["C9_propagation_R25"]
-    plain = time_ms(lambda: nv.ncc_volume_cost_ref(E, vs.ref_pad, planes_cf, consts, K), 2, 1)
-    ms_e = time_ms(lambda: nv.ncc_cost(E, vs.ref_pad, planes_cf, consts, K), 10)
+    # planes the folded slice coordinate cannot take: w = 0 (once with n0 =
+    # 0 too), a NaN plane, an infinite normal; their lanes take the divisions
+    deg = pl9.clone()
+    deg[0, 3, 10, 20:24] = 0.0
+    deg[0, 0, 10, 20] = 0.0
+    deg[1, :, 11, 30] = float("nan")
+    deg[2, 0, 12, 40] = float("inf")
+    err_d, nan_d = check_h2(h2_views(deg), plain_views(deg), "degenerate planes")
+    err_h2 = max(err_h2, err_d)
+    ms = graph_ms(lambda: h2_views(pl9))
+    call = time_ms(lambda: h2_views(pl9), 10)
+    plain = time_ms(lambda: plain_views(pl9), 2, 1)
+    touched = sum(ncc_touched(pl9, consts_v[v], K, PH, PW) for v in range(V - 1))
+    b_ms, b_by = h2_bound_views(pl9, V - 1, touched)
     rows.append(dict(name="ncc_cost", route="cuda", source="apdmvs_tpu_torch/csrc/ncc_cost.cu",
                      replaces="apdmvs_tpu/ops/ncc_volume.py:353", max_abs_err=err_h2, ms=ms,
                      plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None))
-    log(f"kernel H2 ncc_cost: {ms:.3f} ms at C=9 through R (from E alone {ms_e:.3f}; plain "
-        f"{plain:.3f}; bound {b_ms:.4f} by {b_by}); no single PyTorch call computes it")
+    log(f"kernel H2 ncc_cost_views C9 over {V - 1} views: max abs {err:.3e} (tol 1e-4); "
+        f"degenerate planes max abs {err_d:.3e}, NaN in {nan_d} lanes as the plain version; "
+        f"device {ms:.4f} ms, {call:.4f} ms a call (plain {plain:.3f}; bound {b_ms:.4f} by "
+        f"{b_by}; E elements touched {touched}); no single PyTorch call computes it")
+    del Es
 
     # ---- H4 geom_cost, C=8 sweep planes over the trunc depth volume
     gconsts = ncc.add_depth_volumes(vs, dm[:2], cams, 1.2, 9.6).geom_consts[0]
-    planes_cf = ncc._pad_planes_cf(cases["C8_sweep_R49"][0], Hp, Wp)[:, :, :Hp, :Wp]
-    Dp = vol.build_volume(dm[1], wc.M[1], wc.b[1], cams.K[0], Hp, Wp, u_min, du, K,
-                          pad_y=0, pad_x=0, dtype=torch.float32, trunc=True)
-    out = nv.geom_volume_cost_view(Dp, planes_cf, gconsts, K)
-    ref = nv.geom_volume_cost_view_ref(Dp, planes_cf, gconsts, K)
+    planes_cf = cases["C8_sweep"]
+    out = nv.geom_volume_cost_view(D, planes_cf, gconsts, K)
+    ref = nv.geom_volume_cost_view_ref(D, planes_cf, gconsts, K)
     err = float((out - ref).abs().max())
     log(f"kernel H4 geom_cost C=8: max abs {err:.3e} (tol 1e-4)")
     if not err < 1e-4:
         raise AssertionError("H4 disagrees with its plain version")
     C = planes_cf.shape[0]
-    ms = time_ms(lambda: nv.geom_volume_cost_view(Dp, planes_cf, gconsts, K), 20)
-    plain = time_ms(lambda: nv.geom_volume_cost_view_ref(Dp, planes_cf, gconsts, K), 3, 1)
+    ms = time_ms(lambda: nv.geom_volume_cost_view(D, planes_cf, gconsts, K), 20)
+    plain = time_ms(lambda: nv.geom_volume_cost_view_ref(D, planes_cf, gconsts, K), 3, 1)
     touched = geom_touched(planes_cf, gconsts, K)
     b_ms, b_by = bound(touched * 4 + C * Hp * Wp * (16 + 4), C * Hp * Wp * OPS_H4)
     rows.append(dict(name="geom_cost", route="cuda", source="apdmvs_tpu_torch/csrc/geom_cost.cu",
@@ -443,17 +521,21 @@ def phase_kernels(dev, inputs):
     log(f"kernel H4 geom_cost: {ms:.3f} ms (plain {plain:.3f}, bound {b_ms:.4f} by {b_by}; "
         f"D elements touched {touched}) at C=8 {Hp}x{Wp}")
     log(f"kernel H4 geom_cost: device "
-        f"{graph_ms(lambda: nv.geom_volume_cost_view(Dp, planes_cf, gconsts, K)):.4f} ms")
+        f"{graph_ms(lambda: nv.geom_volume_cost_view(D, planes_cf, gconsts, K)):.4f} ms")
     torch.cuda.synchronize()
     return rows
 
 
-# the kernels of the one-round path (the weak machinery's H5, H6 run only
-# in rounds after the first); of the two-round scene; and of the ops entry
-# points that no default path calls (H7, H8) with H2 on K10's case
-ONE_ROUND_KERNELS = ("build_volume", "ncc_cost", "rebase_view", "geom_cost")
+# the launch counters of the one-round path (the weak machinery's H5, H6
+# run only in rounds after the first; H2 runs as ncc_cost_views, every
+# source view in one launch); of the two-round scene; and of the ops entry
+# points that no default path calls (H7, H8, H3 with H2's two rebased
+# entries) with H2 on K10's case
+ONE_ROUND_KERNELS = ("build_volume", "ncc_cost_views", "geom_cost")
 TWO_ROUND_KERNELS = ONE_ROUND_KERNELS + ("gather_cols", "contract_lookup")
-OPS_KERNELS = ("volume_sample", "gather_rows", "gather_rows_sorted", "ncc_cost")
+OPS_KERNELS = ("volume_sample", "gather_rows", "gather_rows_sorted", "ncc_cost", "rebase_view")
+# counters that no default path may advance: H2 one view at a time, and H3
+NOT_ON_MAIN_PATH = ("ncc_cost", "rebase_view")
 # K10's two windows are BAND2 = 32 slices each (apdmvs_tpu/ops/ncc_volume.py:81)
 BAND2 = 32
 # grid_sample counts as computing volume_sample's function if it agrees with
@@ -466,7 +548,8 @@ def _counters():
     from apdmvs_tpu_torch.ops import cols, ncc_volume as nv, volume as vol
 
     return {"build_volume": vol.build_volume, "ncc_cost": nv.ncc_cost,
-            "rebase_view": nv.build_rebased_view, "geom_cost": nv.geom_volume_cost_view,
+            "ncc_cost_views": nv.ncc_cost_views, "rebase_view": nv.build_rebased_view,
+            "geom_cost": nv.geom_volume_cost_view,
             "gather_cols": cols.gather_cols, "contract_lookup": cols.contract_lookup,
             "gather_rows": cols.gather_rows, "gather_rows_sorted": cols.gather_rows_sorted,
             "volume_sample": vol.volume_sample}
@@ -505,6 +588,9 @@ def phase_main_path(dev, inputs):
         missing = [n for n in ONE_ROUND_KERNELS if launches[n] == 0]
         if missing:
             raise AssertionError(f"kernels not launched on the main path: {missing}")
+        stray = [n for n in NOT_ON_MAIN_PATH if launches[n] != 0]
+        if stray:
+            raise AssertionError(f"the main path launched {stray}")
 
         errs = []
         for v in range(V):
@@ -749,6 +835,7 @@ def phase_ops(dev, inputs, flag, worklist):
         torch.cat([n_cam, geometry.dist_to_origin(cams.K[0], x, y, d, n_cam)[..., None]], -1)
         for d in (gt, rand)]), Hp, Wp)
     E0, ref_pad, consts = vs.E[0], vs.ref_pad, vs.consts[0]
+    base_k = ncc._base_slice_map(vs, gt)
     torch.cuda.synchronize()
 
     # ---- the counted run: every entry point once
@@ -759,6 +846,12 @@ def phase_ops(dev, inputs, flag, worklist):
     out_D = vol.volume_sample(vs.D[0], k_D)
     got_rows = {name: c[0](tables[name], c[2]) for name, c in gcases.items()}
     cost = nv.ncc_volume_cost_view(E0, ref_pad, pcf, consts, K)
+    # K4's counterpart and H2's two rebased entries (which read E alone)
+    rebased = {}
+    for j2, entry in ((nv.J2_REBASE, nv.ncc_rebased_cost_view),
+                      (nv.SWEEP_J2, nv.ncc_rebased_sweep_cost_view)):
+        R, bf = nv.build_rebased_view(E0, base_k, K, j2=j2)
+        rebased[entry.__name__] = (R, bf, entry(R, bf, E0, ref_pad, pcf, consts, K))
     torch.cuda.synchronize()
     launches = {n: counters[n].launches for n in OPS_KERNELS}
     log("ops: launches of one run of the entry points (these kernels run on no default path; "
@@ -878,15 +971,28 @@ def phase_ops(dev, inputs, flag, worklist):
         f"(tol 1e-4); {wide} of {span.numel()} tiles span more than two {BAND2}-slice bands")
     if not (err < 1e-4 and wide > 0):
         raise AssertionError("H2 fails K10's case, or the case has no tile the bands miss")
-    ms = time_ms(lambda: nv.ncc_volume_cost_view(E0, ref_pad, pcf, consts, K), 20)
+    ms = graph_ms(lambda: nv.ncc_volume_cost_view(E0, ref_pad, pcf, consts, K))
+    call = time_ms(lambda: nv.ncc_volume_cost_view(E0, ref_pad, pcf, consts, K), 20)
     plain = time_ms(lambda: nv.ncc_volume_cost_ref(E0, ref_pad, pcf, consts, K), 3, 1)
     (b_ms, b_by), touched = h2_bound(pcf, consts)
-    log(f"kernel H2 ncc_cost K10 case: {ms:.3f} ms (plain {plain:.3f}, bound {b_ms:.4f} by "
-        f"{b_by}; E elements touched {touched}, {touched / (PH * PW):.2f} slices a pixel); no "
-        "single PyTorch call computes it")
+    log(f"kernel H2 ncc_cost K10 case: device {ms:.4f} ms, {call:.4f} ms a call (plain "
+        f"{plain:.3f}, bound {b_ms:.4f} by {b_by}; E elements touched {touched}, "
+        f"{touched / (PH * PW):.2f} slices a pixel); no single PyTorch call computes it")
+
+    # ---- H3 and H2's rebased entries: H3 bit-exact, the entries as H2 from E
+    for name, (R, bf, got) in rebased.items():
+        j2 = R.shape[0]
+        R_ref, bf_ref = nv.build_rebased_view_ref(E0, base_k, K, j2=j2)
+        exact = torch.equal(R.view(torch.int16), R_ref.view(torch.int16)) and torch.equal(bf, bf_ref)
+        err_e = float((got - cost).abs().max())
+        log(f"ops: H3 rebase_view j2={j2} bit-exact {exact} (tol: bit-exact); {name} through it "
+            f"max abs {err_e:.3e} from H2 on E (tol: 0)")
+        if not (exact and err_e == 0.0):
+            raise AssertionError(f"H3 or {name} disagrees")
+    del rebased
     torch.cuda.synchronize()
     log(f"ops: phase took {time.perf_counter() - t_phase:.2f} s")
-    return rows
+    return rows, launches
 
 
 def _depth_errors(depth, gt, mask):
@@ -1013,6 +1119,9 @@ def phase_two_rounds(dev):
         missing = [n for n in TWO_ROUND_KERNELS if launches[n] == 0]
         if missing:
             raise AssertionError(f"kernels not launched on the two-round scene: {missing}")
+        stray = [n for n in NOT_ON_MAIN_PATH if launches[n] != 0]
+        if stray:
+            raise AssertionError(f"the two-round scene launched {stray}")
         weak_in = next(st for spec, problem, st in run.passes
                        if spec.round_index == 1 and spec.state.name == "REFINE_INIT"
                        and problem.ref_image_id == 0).weak_in
@@ -1071,17 +1180,21 @@ def main() -> int:
     flag = flagship_state(dev, inputs)
     cols_rows, worklist = phase_cols(dev, inputs, flag)
     rows += cols_rows
-    rows += phase_ops(dev, inputs, flag, worklist)
+    ops_rows, ops_launches = phase_ops(dev, inputs, flag, worklist)
+    rows += ops_rows
     torch.cuda.empty_cache()
     phase_flagship(dev, inputs, flag)
     del flag, worklist
     torch.cuda.empty_cache()
     launches_2r = phase_two_rounds(dev)
-    # each kernel's launches on its slice's main path: H1-H4 on the one-round
-    # 640x480 scene, H5-H6 on the two-round 1280x960 scene, H7-H8 in the ops
-    # phase (set there)
+    # each kernel's launches on its slice's main path: H1, H2 (both its
+    # wrappers) and H4 on the one-round 640x480 scene, H5-H6 on the two-round
+    # 1280x960 scene, H3, H7, H8 in the ops phase
+    launches["ncc_cost"] += launches["ncc_cost_views"]
     for r in rows:
-        if "launches" not in r:
+        if r["name"] == "rebase_view":
+            r["launches"] = ops_launches["rebase_view"]
+        elif "launches" not in r:
             r["launches"] = (launches_2r if r["name"] in ("gather_cols", "contract_lookup")
                              else launches)[r["name"]]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -9,7 +9,10 @@ reference package itself runs on the CPU, on the same inputs:
                        a floor-boundary flip moves a sample one pixel)
   H2 ncc_cost          vs ops/ncc_volume.py::ncc_volume_cost_view_ref, same E
                        carried over by convert.py, through all four entry
-                       points (max abs < 1e-4, tests/test_ncc_volume.py:112)
+                       points and ncc_cost_views over every source view
+                       (max abs < 1e-4, tests/test_ncc_volume.py:112); and a
+                       float32 emulation of the kernel's folded slice
+                       coordinate against the same mirror
   H3 rebase_view       vs the CPU branch of build_rebased_view (bit-exact)
   H4 geom_cost         vs geom_volume_cost_view_ref (max abs < 1e-4)
 
@@ -167,6 +170,111 @@ def test_ncc_cost_matches_mirror(scene, case, entry):
     assert float(np.abs(out.numpy() - ref).max()) < 1e-4
 
 
+@pytest.mark.parametrize("case", ["oracle", "perturbed", "random_depth", "sweep_chunk"])
+def test_ncc_cost_views_matches_mirror(scene, case):
+    """Every source view of the fixture in one call, as the cost harness
+    makes it, against the mirror view by view."""
+    planes = _plane_cases(scene)[case]
+    jvs, tvs = scene["jvs"], scene["tvs"]
+    out = tnv.ncc_cost_views(tvs.E, tvs.ref_pad, t(planes), tvs.consts, K)
+    assert out.shape == (tvs.E.shape[0],) + planes.shape[:1] + planes.shape[2:]
+    for v in range(tvs.E.shape[0]):
+        ref = np.asarray(jnv.ncc_volume_cost_view_ref(
+            jvs.E[v], jvs.ref_pad, jnp.asarray(planes), jvs.consts[v], K))
+        assert np.isfinite(ref).all()
+        assert float(np.abs(out[v].numpy() - ref).max()) < 1e-4
+
+
+def _folded_kernel_emulation(E_pad, ref_pad, planes, consts, num_slices, radius=5,
+                             increment=2):
+    """The plain version of H2 with the CUDA kernel's slice coordinate: per
+    output the plane folds into kr = c2 diry + (c1 dirx + c0), evaluated as
+    two float32 fused multiply-adds, where |c0| + |c1| max|dirx| + |c2|
+    max|diry| over the window is below 1e30; the plain version's divisions
+    elsewhere (csrc/ncc_cost.cu)."""
+    c = consts[0]
+    fx, fy, cx, cy, u_min, du = (c[m] for m in range(6))
+    C, _, H, W = planes.shape
+    ys, xs = torch.meshgrid(torch.arange(H, dtype=torch.float32),
+                            torch.arange(W, dtype=torch.float32), indexing="ij")
+    ys = ys + c[20]
+    n0, n1, n2, w = planes.unbind(1)
+    wdu = w * du
+    c1, c2 = -n0 / wdu, -n1 / wdu
+    c0 = (-(n2 / w) - u_min) / du
+    vals = range(-radius, radius + 1, increment)
+    dxmax = torch.stack([((xs + float(d) - cx) / fx).abs() for d in vals]).amax(0)
+    dymax = torch.stack([((ys + float(d) - cy) / fy).abs() for d in vals]).amax(0)
+    folded = c0.abs() + c1.abs() * dxmax + c2.abs() * dymax < 1e30
+    E32 = E_pad.float()
+    s_r = s_rr = torch.zeros((H, W))
+    s_s = s_ss = s_rs = torch.zeros((C, H, W))
+    offsets = tnv._offsets(radius, increment)
+    for dx, dy in offsets:
+        dirx = (xs + float(dx) - cx) / fx
+        diry = (ys + float(dy) - cy) / fy
+        kr_div = (-(n0 * dirx + n1 * diry + n2) / w - u_min) / du
+        kr = torch.where(folded, tnv.fma(c2, diry, tnv.fma(c1, dirx, c0)), kr_div)
+        k = torch.clamp(kr, 0.0, num_slices - 1.0)
+        E_sh = E32[:, tnv.PAD_Y + dy: tnv.PAD_Y + dy + H, tnv.PAD_X + dx: tnv.PAD_X + dx + W]
+        k0 = tnv._slice_index(torch.floor(k), num_slices)
+        k1 = torch.clamp(k0 + 1, max=num_slices - 1)
+        f = k - k0.float()
+        sv = torch.gather(E_sh, 0, k0) * (1.0 - f) + torch.gather(E_sh, 0, k1) * f
+        rv = ref_pad[tnv.PAD_Y + dy: tnv.PAD_Y + dy + H, tnv.PAD_X + dx: tnv.PAD_X + dx + W]
+        s_r, s_rr = s_r + rv, s_rr + rv * rv
+        s_s, s_ss, s_rs = s_s + sv, s_ss + sv * sv, s_rs + rv * sv
+    inv = torch.tensor(1.0 / len(offsets), dtype=torch.float32)
+    mr, ms = s_r * inv, s_s * inv
+    var_r, var_s, cov = tnv.ncc_moments(s_rr, s_ss, s_rs, mr, ms, inv)
+    cost = torch.clamp(1.0 - cov * torch.rsqrt(torch.clamp(var_r * var_s, min=1e-30)),
+                       0.0, tnv.COST_MAX)
+    cost = torch.where((var_r < tnv.MIN_VAR) | (var_s < tnv.MIN_VAR), tnv.COST_MAX, cost)
+    # the centre-warp test, unchanged from the plain version
+    M, b = c[6:15].reshape(3, 3), c[15:18]
+    dirx, diry = (xs - cx) / fx, (ys - cy) / fy
+    u_c = -(n0 * dirx + n1 * diry + n2) / w
+    q = [M[i, 0] * dirx + M[i, 1] * diry + M[i, 2] + b[i] * u_c for i in range(3)]
+    px, py = q[0] / q[2], q[1] / q[2]
+    oob = (px < 0) | (px >= c[18]) | (py < 0) | (py >= c[19])
+    return torch.where(oob, tnv.COST_MAX, cost), folded
+
+
+def _degenerate(planes):
+    """The perturbed fields with planes the fold cannot take: w = 0 (once
+    with n0 = 0 too, so c1 = 0/0), a NaN plane and an infinite normal."""
+    p = planes.copy()
+    p[0, 3, 3, 5:9] = 0.0
+    p[0, 0, 3, 5] = 0.0
+    p[1, :, 4, 10] = np.nan
+    p[2, 0, 5, 20] = np.inf
+    return p
+
+
+@pytest.mark.parametrize("case", ["oracle", "perturbed", "random_depth", "sweep_chunk",
+                                  "degenerate"])
+def test_folded_slice_coordinate_matches_mirror(scene, case):
+    """H2 rounds kr through the folded plane, not through the plain
+    version's divisions; emulated in float32, that stays under 1e-4 of the
+    mirror, and planes the fold cannot take give the mirror's result, NaN
+    included."""
+    cases = _plane_cases(scene)
+    planes = _degenerate(cases["perturbed"]) if case == "degenerate" else cases[case]
+    jvs, tvs = scene["jvs"], scene["tvs"]
+    ref = np.asarray(jnv.ncc_volume_cost_view_ref(
+        jvs.E[0], jvs.ref_pad, jnp.asarray(planes), jvs.consts[0], K))
+    out, folded = _folded_kernel_emulation(tvs.E[0], tvs.ref_pad, t(planes), tvs.consts[0], K)
+    out = out.numpy()
+    nan = np.isnan(ref)
+    assert np.array_equal(np.isnan(out), nan)
+    assert float(np.abs(out[~nan] - ref[~nan]).max()) < 1e-4
+    # the padding rows (40-47) fold, and so does every real plane here
+    assert bool(folded[:, 40:].all())
+    assert int((~folded).sum()) == (6 if case == "degenerate" else 0)
+    if case == "degenerate":
+        assert nan.any()
+
+
 @pytest.mark.parametrize("j2", [25, 49])
 def test_rebase_view_bit_exact(scene, j2):
     jvs, tvs = scene["jvs"], scene["tvs"]
@@ -204,6 +312,11 @@ def test_wrappers_check_their_inputs(scene):
     planes = torch.zeros((2, 4, 40, 128))  # grid not padded to (16, 128)
     with pytest.raises(ValueError):
         tnv.ncc_cost(E, ref_pad, planes, consts, K)
+    planes = torch.zeros((2, 4, 48, 128))
+    with pytest.raises(ValueError):  # one view's consts for several views
+        tnv.ncc_cost_views(tvs.E, ref_pad, planes, consts, K)
+    with pytest.raises(ValueError):  # E of another slice count
+        tnv.ncc_cost_views(tvs.E, ref_pad, planes, tvs.consts, K + 1)
     with pytest.raises(ValueError):
         tnv.build_rebased_view(E, torch.zeros(ref_pad.shape), K, j2=K + 1)
     with pytest.raises(ValueError):

@@ -205,9 +205,7 @@ def test_initial_cost_and_recost_match(sc):
     assert float((ts.numpy() == np.asarray(js)).all(0).mean()) >= 0.99
     sel = np.asarray(js)
     jc2, jok = jncc.recost_selected_views(sc["jctx"], jnp.asarray(pl), jnp.asarray(sel), 5, 2)
-    tctx_r = sc["tctx"]._replace(volumes=tncc.rebase_volume_set(
-        sc["tctx"].volumes, t(np.where(sc["depths"][0] > 0, sc["depths"][0], 0.0))))
-    tc2, tok = tncc.recost_selected_views(tctx_r, t(pl), t(sel), 5, 2)
+    tc2, tok = tncc.recost_selected_views(sc["tctx"], t(pl), t(sel), 5, 2)
     assert float(np.abs(tc2.numpy() - np.asarray(jc2)).max()) < 1e-4
     assert float((tok.numpy() == np.asarray(jok)).all(0).mean()) >= 0.99
 

@@ -41,6 +41,7 @@ from _torch_parity import DMAX, DMIN, JaxDraws, ring_scene, t
 from apdmvs_tpu import ncc as jncc, pipeline as jpipe
 from apdmvs_tpu.params import PassConfig, PixelState, RunState
 from apdmvs_tpu_torch import convert, pipeline as tpipe
+from apdmvs_tpu_torch.ops import ncc_volume as tnv
 
 torch.set_num_threads(2)
 
@@ -146,6 +147,36 @@ def test_refine_iter_geom_pass_matches_reference(first_init):
     m = np.zeros_like(gt, bool)
     m[8:-8, 10:-10] = gt[8:-8, 10:-10] > 0
     assert np.median(np.abs(tout.depth.numpy() - gt)[m] / gt[m]) < 0.01
+
+
+def test_refine_iter_pass_reads_e_alone(first_init, monkeypatch):
+    """A REFINE_ITER pass builds no rebased volume (the reference rebases
+    on the recost and every iteration) and evaluates every NCC cost over
+    all source views at once, never one view at a time."""
+    sc, _, tvs, _, tout0 = first_init
+    calls = {"build_rebased_view": 0, "ncc_cost": 0, "ncc_cost_views": 0}
+
+    def spy(name):
+        fn = getattr(tnv, name)
+
+        def counted(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return counted
+
+    for name in calls:
+        monkeypatch.setattr(tnv, name, spy(name))
+    V, H, W = sc["V"], sc["H"], sc["W"]
+    prior = tpipe.PassState(depth=tout0.depth, normal_world=tout0.normal_world,
+                            pixel_state=tout0.pixel_state, selected=tout0.selected)
+    cfg = PassConfig(state=RunState.REFINE_ITER, geom_consistency=False, use_APD=False,
+                     max_iterations=3, weak_peak_radius=4)
+    out = tpipe.patchmatch_pass(convert.to_cameras(sc["jcams"]), t(np.arange(V) > 0), prior,
+                                JaxDraws(jax.random.PRNGKey(5), H, W), cfg, tvs)
+    assert calls["build_rebased_view"] == 0
+    assert calls["ncc_cost"] == 0
+    assert calls["ncc_cost_views"] > 0
+    assert bool(torch.isfinite(out.depth).all())
 
 
 if __name__ == "__main__":
