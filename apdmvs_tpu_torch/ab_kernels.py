@@ -1,4 +1,4 @@
-"""Device times of H1 and H2 of the port found under ROOT.
+"""Device times of H1, H2, H4 and H7 of the port found under ROOT.
 
     python apdmvs_tpu_torch/ab_kernels.py ROOT
 
@@ -14,7 +14,16 @@ plane fields of ``chip_smoke.py`` phase 2):
 - H2 through a rebased volume R (the rebase excluded), where the package
   still takes one: C=9 with j2=25 and C=8 with j2=49;
 - H2 over the four source views at C=9: one ``ncc_cost_views`` launch where
-  the package has it, else four one-view calls.
+  the package has it, else four one-view calls;
+- H4 at C=8 (the sweep chunk's planes) over the trunc depth volumes: one
+  view, and the four source views: one ``geom_cost_views`` launch where the
+  package has it, else four one-view calls and the ``torch.stack`` the
+  cost harness made of them;
+- H7 on the three tables of ``chip_smoke.py``'s ``ops`` phase with its
+  index sets (bench.py's flagship worklist: C36's rows at the weak pixels
+  sorted, C9's at their anchors, D's at the weak pixels), the sorted case
+  also with int32 indices, and ``torch.index_select`` on each as the
+  library yardstick.
 
 It prints one line ``ABK ROOT {json}`` of milliseconds, and the card's name
 and power limit. To compare two commits on one card, run it in fresh
@@ -139,6 +148,46 @@ def main(root: str) -> None:
     else:
         times["H2_C9_4views"] = graph_ms(
             lambda: [nv.ncc_cost(Es[v], ref_pad, pcf, consts_v[v], K) for v in range(V - 1)])
+
+    # H4: the trunc depth volumes of the four source views, C=8
+    vs_d = ncc.add_depth_volumes(vs, dm, cams, 1.2, 9.6)
+    Ds, gconsts = vs_d.D, vs_d.geom_consts
+    pcf = cases["C8_sweep"]
+    times["H4_C8_1view"] = graph_ms(lambda: nv.geom_volume_cost_view(Ds[0], pcf, gconsts[0], K))
+    if hasattr(nv, "geom_cost_views"):
+        times["H4_C8_4views"] = graph_ms(lambda: nv.geom_cost_views(Ds, pcf, gconsts, K))
+    else:
+        times["H4_C8_4views"] = graph_ms(lambda: torch.stack([
+            nv.geom_volume_cost_view(Ds[v], pcf, gconsts[v], K) for v in range(V - 1)]))
+    del vs_d, Ds, Es
+
+    # H7: the ops phase's tables and index sets, from the flagship worklist
+    from apdmvs_tpu_torch import rng, trace_pass, weak
+    from apdmvs_tpu_torch.ops import cols
+
+    vsf, prior, cap, _ = trace_pass.flagship_state(images, depths, normals, cams, K)
+    ctx = ncc.make_context(cams, torch.arange(V, device=dev) > 0, H, W, vsf)
+    weak_xy = weak.compact_weak_pixels(prior.pixel_state, cap)
+    anchors, _ = weak.generate_anchors(ctx, prior.depth, prior.pixel_state, weak_xy,
+                                       rng.TorchDraws(0, H, W, dev), trace_pass.FLAGSHIP_CFG,
+                                       trace_pass.FLAGSHIP_RTH)
+    PH, PW = Hp + 2 * nv.PAD_Y, Wp + 2 * nv.PAD_X
+    wx, wy = weak_xy[:, 0], weak_xy[:, 1]
+    ax, ay = anchors.coords[:, 1:, 0].reshape(-1), anchors.coords[:, 1:, 1].reshape(-1)
+    idx_s = torch.sort(cols.flat_index(wx, wy, nv.PAD_Y, nv.PAD_X, PH, PW), stable=True)[0]
+    h7 = {
+        "c9_anchors": (cols.gather_rows, vsf.C9,
+                       cols.flat_index(ax, ay, nv.PAD_Y, nv.PAD_X, PH, PW)),
+        "c36_sorted": (cols.gather_rows_sorted, vsf.C36, idx_s),
+        "c36_sorted_int32": (cols.gather_rows_sorted, vsf.C36, idx_s.to(torch.int32)),
+        "d": (cols.gather_rows, vsf.D, cols.flat_index(wx, wy, 0, 0, H, W)),
+    }
+    for name, (entry, volm, idx) in h7.items():
+        table = cols.pack_volume_rows(volm).contiguous()
+        idx_cl = torch.clamp(idx, 0, table.shape[0] - 1)
+        times[f"H7_{name}"] = graph_ms(lambda: entry(table, idx))
+        times[f"index_select_{name}"] = graph_ms(lambda: torch.index_select(table, 0, idx_cl))
+        del table
     print(f"ABK {sys.argv[1]} " + json.dumps(times), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)

@@ -1,82 +1,237 @@
-// H4 geom_cost: geometric-consistency cost over a source view's depth
-// volume, for Hopper (sm_90a).
+// H4 geom_cost: geometric-consistency cost over the source views' depth
+// volumes, every source view in one launch, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel apdmvs_tpu/ops/ncc_volume.py::_geom_kernel
-// (entry geom_volume_cost_view); oracle geom_volume_cost_view_ref. Per
-// output (c, y, x):
-//   u   = -(n . dir(x, y)) / w,  k = clamp((u - u_min) / du, 0, K-1)
-//   sd  = D[rint(k), y, x]        (nearest slice, half to even as jnp.round)
-//   p   = warp of (x, y) into the source view at inverse depth u
-//   q   = reprojection of (p, sd) into the reference view (A, t')
-//   cost = min(|(x, y) - q|, 3); 3 when sd == 0 or p leaves the source.
+// Replaces the TPU kernel apdmvs_tpu/ops/ncc_volume.py:1370 _geom_kernel
+// (entry geom_volume_cost_view, :1503); oracle geom_volume_cost_view_ref,
+// view by view. Per source view v and output (c, y, x):
+//   dir = ((x - cx) / fx, (y + row0 - cy) / fy)
+//   u   = -((n0 dirx + n1 diry) + n2) / w,  k = clamp((u - u_min) / du, 0, K-1)
+//   sd  = D[v, rint(k), y, x]    (nearest slice, half to even as torch.round;
+//                                 a NaN k reads slice 0)
+//   q   = (M dir) + b u,  p = (qx / qz, qy / qz): (x, y) warped into view v
+//   r   = reprojection of (p, sd) into the reference view (A, t')
+//   cost = min(|(x, y) - r|, 3); 3 when sd == 0 or p leaves the source.
 //
-// Bound on this card: bytes (16 bytes of plane, one 4-byte D value and a
-// 4-byte cost per output, against ~60 f32 operations); the D load is the
-// scattered one. Design: one thread per output, x fastest, so the plane
-// reads and cost writes coalesce and the D loads of a warp hit one or two
-// slices where the field is smooth.
-
+// Bound on this card: bytes. Per (pixel, plane) the function reads 16 bytes
+// of plane, and per view one 4-byte D value and writes a 4-byte cost; the
+// ~60 f32 operations of an output, 4 of them correctly rounded divisions
+// and a square root (each a multi-instruction sequence with a branch to a
+// slow path), make instruction issue the practical limit: ~140 SASS
+// instructions an output.
+//
+// Design:
+// - one launch over all NV views: D [NV, K, H, W], planes [C, 4, H, W],
+//   constants [NV, 33], costs [NV, C, H, W]; a thread owns one pixel and
+//   a group of PLANES consecutive planes (grid x, y over the pixels, x
+//   fastest, z over the plane groups), so no index needs an integer
+//   division. Groups of 4 balance the per-thread setup against the warps
+//   in flight (2 and 8 measured slower);
+// - each block stages the NV x 33 constants in shared memory once, laid
+//   out as 9 float4 a view so a view's output reads them in 5 vector loads;
+// - per thread, once: dir, and each view's (M0 dirx + M1 diry) + M2 rows
+//   (views in exact chunks of VCHUNK, then one at a time, in registers);
+// - per (pixel, plane), once: the plane's 16 bytes, u and the nearest
+//   slice. Both are view-independent where every view has the same slice
+//   grid (u_min, du) and reference intrinsics (fx, fy, cx, cy, row0), as
+//   the cost harness builds them; a block tests that once (a uniform
+//   branch) and otherwise computes them per view, so any constants give
+//   the plain result;
+// - per view: the D gather, the warp, the reprojection, 4 divisions and
+//   the root. A plane's VCHUNK depth loads are issued together before its
+//   first cost: no branch guards one, so none waits on another.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define GEOM_COST_MAX 3.0f
+#define NGEOM 33
+#define SLOTS 36  // 9 float4 a view in shared memory
+#define VCHUNK 4
+#define BLOCK_X 128
+#define BLOCK_Y 2
+#define PLANES 4
+#define MIN_BLOCKS 4
 
-__global__ void geom_cost_kernel(const float* __restrict__ D, const float* __restrict__ planes,
-                                 const float* __restrict__ g, int C, int H, int W, int K,
-                                 float* __restrict__ out) {
-  const long long hw = (long long)H * W;
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= (long long)C * hw) return;
-  const int x = (int)(i % W);
-  const int y = (int)((i / W) % H);
-  const int c = (int)(i / hw);
-  const float fx = __ldg(g + 0), fy = __ldg(g + 1), cx = __ldg(g + 2), cy = __ldg(g + 3);
-  const float u_min = __ldg(g + 4), du = __ldg(g + 5);
-  const float* M = g + 6;
-  const float* b = g + 15;
-  const float* A = g + 18;
-  const float* t = g + 27;
-  const float src_w = __ldg(g + 30), src_h = __ldg(g + 31), row0 = __ldg(g + 32);
+// Shared slot of constant j of the packed layout [33] (fx, fy, cx, cy,
+// u_min, du, M(9), b(3), A(9), t'(3), src_w, src_h, row0):
+//   float4 0 {fx, fy, cx, cy}     1 {u_min, du, row0, -}
+//          2 {M0..M3}  3 {M4..M7}  4 {M8, b0, b1, b2}
+//          5 {A0..A3}  6 {A4..A7}  7 {A8, t0, t1, t2}  8 {src_w, src_h, -, -}
+__device__ __forceinline__ int slot_of(int j) {
+  return j < 6 ? j : (j < 30 ? j + 2 : (j == 30 ? 32 : (j == 31 ? 33 : 6)));
+}
 
-  const float xs = (float)x;
-  const float ys = (float)y + row0;
-  const float dirx = (xs - cx) / fx;
-  const float diry = (ys - cy) / fy;
-  const float* pl = planes + (long long)c * 4 * hw + (long long)y * W + x;
-  const float n0 = __ldg(pl), n1 = __ldg(pl + hw), n2 = __ldg(pl + 2 * hw), w = __ldg(pl + 3 * hw);
-  const float u = -((n0 * dirx + n1 * diry) + n2) / w;
+__device__ __forceinline__ int nearest_slice(float u, float u_min, float du, float kmax) {
   const float kr = (u - u_min) / du;
-  const float k = isnan(kr) ? kr : fminf(fmaxf(kr, 0.0f), (float)(K - 1));
+  const float k = isnan(kr) ? kr : fminf(fmaxf(kr, 0.0f), kmax);
   const float kn = rintf(k);
-  const int ri = isnan(kn) ? 0 : (int)kn;
-  const float sd = __ldg(D + (long long)ri * hw + (long long)y * W + x);
+  return isnan(kn) ? 0 : (int)kn;
+}
 
-  const float qx = (__ldg(M + 0) * dirx + __ldg(M + 1) * diry + __ldg(M + 2)) + __ldg(b + 0) * u;
-  const float qy = (__ldg(M + 3) * dirx + __ldg(M + 4) * diry + __ldg(M + 5)) + __ldg(b + 1) * u;
-  const float qz = (__ldg(M + 6) * dirx + __ldg(M + 7) * diry + __ldg(M + 8)) + __ldg(b + 2) * u;
+// One view's cost from its M dir rows (mx, my, mz), u and the depth sd.
+__device__ __forceinline__ float view_cost(const float4* __restrict__ s, float mx, float my,
+                                           float mz, float u, float sd, float xs, float ys) {
+  const float4 mb = s[4], a0 = s[5], a1 = s[6], at = s[7], sz = s[8];
+  const float qx = mx + mb.y * u;
+  const float qy = my + mb.z * u;
+  const float qz = mz + mb.w * u;
   const float px = qx / qz;
   const float py = qy / qz;
-  const bool oob = (px < 0.0f) || (px >= src_w) || (py < 0.0f) || (py >= src_h);
-  const float rx = (__ldg(A + 0) * px + __ldg(A + 1) * py) + __ldg(A + 2);
-  const float ry = (__ldg(A + 3) * px + __ldg(A + 4) * py) + __ldg(A + 5);
-  const float rz = (__ldg(A + 6) * px + __ldg(A + 7) * py) + __ldg(A + 8);
-  const float bz = sd * rz + __ldg(t + 2);
-  const float bx = (sd * rx + __ldg(t + 0)) / bz;
-  const float by = (sd * ry + __ldg(t + 1)) / bz;
+  const bool oob = (px < 0.0f) || (px >= sz.x) || (py < 0.0f) || (py >= sz.y);
+  const float rx = (a0.x * px + a0.y * py) + a0.z;
+  const float ry = (a0.w * px + a1.x * py) + a1.y;
+  const float rz = (a1.z * px + a1.w * py) + at.x;
+  const float bz = sd * rz + at.w;
+  const float bx = (sd * rx + at.y) / bz;
+  const float by = (sd * ry + at.z) / bz;
   const float ex = xs - bx;
   const float ey = ys - by;
   const float err = sqrtf(ex * ex + ey * ey);
   float cost = isnan(err) ? err : fminf(err, GEOM_COST_MAX);
   if (sd == 0.0f || oob) cost = GEOM_COST_MAX;
-  out[i] = cost;
+  return cost;
 }
 
-extern "C" int geom_cost_launch(const float* D, const float* planes, const float* gconsts, int C,
-                                int H, int W, int K, float* out, void* stream) {
-  const long long total = (long long)C * H * W;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  geom_cost_kernel<<<(unsigned)blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      D, planes, gconsts, C, H, W, K, out);
+__device__ __forceinline__ void m_rows(const float4* __restrict__ s, float dirx, float diry,
+                                       float& mx, float& my, float& mz) {
+  const float4 m0 = s[2], m1 = s[3], m2 = s[4];
+  mx = (m0.x * dirx + m0.y * diry) + m0.z;
+  my = (m0.w * dirx + m1.x * diry) + m1.y;
+  mz = (m1.z * dirx + m1.w * diry) + m2.x;
+}
+
+// Pixel-wise inputs of the views that share one slice grid.
+struct Pixel {
+  unsigned hw, pix;
+  float xs, ys, dirx, diry, u_min, du, kmax;
+};
+
+// Costs of plane c against NB views from v0 for one pixel: the plane's 16
+// bytes, u and the nearest slice once, then the NB depth loads together
+// (no branch guards one), then the NB costs. Dc is view v0's D at this
+// pixel; view v0 + j is j * khw further on.
+template <int NB>
+__device__ __forceinline__ void plane_views(const float4* __restrict__ sg4,
+                                            const float* __restrict__ Dc, unsigned khw,
+                                            const float (&mx)[NB], const float (&my)[NB],
+                                            const float (&mz)[NB],
+                                            const float* __restrict__ planes,
+                                            float* __restrict__ out, int v0, int c, int C,
+                                            const Pixel& p) {
+  const float* pl = planes + (unsigned)c * 4u * p.hw + p.pix;
+  const float n0 = __ldg(pl), n1 = __ldg(pl + p.hw), n2 = __ldg(pl + 2 * p.hw);
+  const float w = __ldg(pl + 3 * p.hw);
+  const float u = -((n0 * p.dirx + n1 * p.diry) + n2) / w;
+  const unsigned koff = (unsigned)nearest_slice(u, p.u_min, p.du, p.kmax) * p.hw;
+  float sd[NB];
+#pragma unroll
+  for (int j = 0; j < NB; ++j) sd[j] = __ldg(Dc + (j * khw + koff));
+  const unsigned o = ((unsigned)v0 * (unsigned)C + (unsigned)c) * p.hw + p.pix;
+  const unsigned chw = (unsigned)C * p.hw;
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+    out[o + j * chw] = view_cost(sg4 + (v0 + j) * 9, mx[j], my[j], mz[j], u, sd[j], p.xs, p.ys);
+}
+
+// This thread's planes against NB views from v0: per-view rows once, then
+// the planes, a whole group of PLANES unrolled.
+template <int NB>
+__device__ __forceinline__ void view_chunk(const float4* __restrict__ sg4,
+                                           const float* __restrict__ D,
+                                           const float* __restrict__ planes,
+                                           float* __restrict__ out, int v0, int c0, int C,
+                                           unsigned khw, const Pixel& p) {
+  float mx[NB], my[NB], mz[NB];
+#pragma unroll
+  for (int j = 0; j < NB; ++j) m_rows(sg4 + (v0 + j) * 9, p.dirx, p.diry, mx[j], my[j], mz[j]);
+  const float* Dc = D + (size_t)v0 * khw + p.pix;
+  if (c0 + PLANES <= C) {
+#pragma unroll
+    for (int i = 0; i < PLANES; ++i)
+      plane_views<NB>(sg4, Dc, khw, mx, my, mz, planes, out, v0, c0 + i, C, p);
+  } else {
+    for (int c = c0; c < C; ++c) plane_views<NB>(sg4, Dc, khw, mx, my, mz, planes, out, v0, c, C, p);
+  }
+}
+
+__global__ void __launch_bounds__(BLOCK_X * BLOCK_Y, MIN_BLOCKS)
+geom_cost_kernel(const float* __restrict__ D, const float* __restrict__ planes,
+                 const float* __restrict__ gconsts, int NV, int C, int H, int W, int K,
+                 float* __restrict__ out) {
+  extern __shared__ float4 sg4[];
+  float* sg = reinterpret_cast<float*>(sg4);
+  const int tid = threadIdx.y * BLOCK_X + threadIdx.x;
+  for (int i = tid; i < NV * NGEOM; i += BLOCK_X * BLOCK_Y) {
+    const int v = i / NGEOM;
+    sg[v * SLOTS + slot_of(i - v * NGEOM)] = __ldg(gconsts + i);
+  }
+  __syncthreads();
+  // every view shares view 0's slice grid and reference intrinsics
+  bool same = true;
+  for (int v = tid; v < NV; v += BLOCK_X * BLOCK_Y) {
+    const float* a = sg + v * SLOTS;
+#pragma unroll
+    for (int j = 0; j < 7; ++j)
+      same &= __float_as_uint(a[j]) == __float_as_uint(sg[j]);
+  }
+  const bool shared_grid = __syncthreads_and(same);
+
+  const int x = blockIdx.x * BLOCK_X + threadIdx.x;
+  const int y = blockIdx.y * BLOCK_Y + threadIdx.y;
+  if (x >= W || y >= H) return;
+  const unsigned hw = (unsigned)H * (unsigned)W;
+  const unsigned pix = (unsigned)y * (unsigned)W + (unsigned)x;
+  const unsigned khw = (unsigned)K * hw;
+  const float kmax = (float)(K - 1);
+  const float xs = (float)x;
+  const int c0 = blockIdx.z * PLANES;
+
+  if (shared_grid) {
+    const float4 f0 = sg4[0], f1 = sg4[1];
+    Pixel p;
+    p.hw = hw;
+    p.pix = pix;
+    p.xs = xs;
+    p.ys = (float)y + f1.z;
+    p.dirx = (xs - f0.z) / f0.x;
+    p.diry = (p.ys - f0.w) / f0.y;
+    p.u_min = f1.x;
+    p.du = f1.y;
+    p.kmax = kmax;
+    int v0 = 0;
+    for (; v0 + VCHUNK <= NV; v0 += VCHUNK) view_chunk<VCHUNK>(sg4, D, planes, out, v0, c0, C, khw, p);
+    for (; v0 < NV; ++v0) view_chunk<1>(sg4, D, planes, out, v0, c0, C, khw, p);
+  } else {
+    for (int c = c0; c < C && c < c0 + PLANES; ++c) {
+      const float* pl = planes + (unsigned)c * 4u * hw + pix;
+      const float n0 = __ldg(pl), n1 = __ldg(pl + hw), n2 = __ldg(pl + 2 * hw);
+      const float w = __ldg(pl + 3 * hw);
+      for (int v = 0; v < NV; ++v) {
+        const float4* s = sg4 + v * 9;
+        const float4 f0 = s[0], f1 = s[1];
+        const float ys = (float)y + f1.z;
+        const float dirx = (xs - f0.z) / f0.x;
+        const float diry = (ys - f0.w) / f0.y;
+        float mx, my, mz;
+        m_rows(s, dirx, diry, mx, my, mz);
+        const float u = -((n0 * dirx + n1 * diry) + n2) / w;
+        const unsigned doff = (unsigned)nearest_slice(u, f1.x, f1.y, kmax) * hw + pix;
+        const float sd = __ldg(D + (size_t)v * khw + doff);
+        out[((unsigned)v * (unsigned)C + (unsigned)c) * hw + pix] =
+            view_cost(s, mx, my, mz, u, sd, xs, ys);
+      }
+    }
+  }
+}
+
+extern "C" int geom_cost_launch(const float* D, const float* planes, const float* gconsts,
+                                int NV, int C, int H, int W, int K, float* out, void* stream) {
+  if (NV < 1 || C < 1 || H < 1 || W < 1 || K < 1) return (int)cudaErrorInvalidValue;
+  const dim3 block(BLOCK_X, BLOCK_Y);
+  const dim3 grid((W + BLOCK_X - 1) / BLOCK_X, (H + BLOCK_Y - 1) / BLOCK_Y,
+                  (C + PLANES - 1) / PLANES);
+  const size_t smem = (size_t)NV * SLOTS * sizeof(float);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  geom_cost_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+      D, planes, gconsts, NV, C, H, W, K, out);
   return (int)cudaGetLastError();
 }

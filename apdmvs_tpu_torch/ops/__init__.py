@@ -11,7 +11,8 @@
   read from E;
 - H3 ``ncc_volume.build_rebased_view`` (``rebase_view.cu``):
   ``ncc_volume.py:1029 _rebase_kernel`` (no default path calls it);
-- H4 ``ncc_volume.geom_volume_cost_view`` (``geom_cost.cu``):
+- H4 ``ncc_volume.geom_cost_views`` (all source views) and
+  ``ncc_volume.geom_volume_cost_view`` (one view) (``geom_cost.cu``):
   ``ncc_volume.py:1370 _geom_kernel``;
 - H5 ``cols.gather_cols`` (``gather_cols.cu``): ``cols.py:50
   _make_gather_kernel`` as the weak machinery uses it;

@@ -150,8 +150,8 @@ gather_cols.launches = 0
 
 _ROWS_SIG = {
     "gather_rows_launch": [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
     ]
 }
 
@@ -177,10 +177,10 @@ def _gather_rows(table: torch.Tensor, idx: torch.Tensor, wrapper) -> torch.Tenso
     if R == 0:
         raise ValueError("gather from an empty table")
     table = table.contiguous()
-    idx = idx.to(torch.int64).contiguous()
+    idx = idx.contiguous()  # int32 or int64 as it comes: the kernel reads either
     lib = _build.load("gather_rows", _ROWS_SIG)
     err = lib.gather_rows_launch(
-        table.data_ptr(), idx.data_ptr(), R, M, C * table.element_size(), table.element_size(),
+        table.data_ptr(), idx.data_ptr(), idx.element_size(), R, M, C * table.element_size(),
         out.data_ptr(), torch.cuda.current_stream(table.device).cuda_stream,
     )
     _build.check(err, "gather_rows")

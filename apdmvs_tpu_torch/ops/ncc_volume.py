@@ -17,7 +17,9 @@ rebased volume R (H3, ``csrc/rebase_view.cu``, for ``:1029
 _rebase_kernel``) is a copy of part of E: H2 never reads it, and no path of
 the port builds it; :func:`build_rebased_view` stays as K4's counterpart.
 The geometric-consistency cost over depth volumes is H4
-(``csrc/geom_cost.cu``, for ``:1370 _geom_kernel``).
+(``csrc/geom_cost.cu``, for ``:1370 _geom_kernel``); like H2 it evaluates
+every source view in one launch (:func:`geom_cost_views`), and the cost
+harness calls only that.
 
 Layout and padding follow the reference package so arrays compare index for
 index: volumes are [K, H+2*PAD_Y, W+2*PAD_X] over the padded pixel grid,
@@ -424,37 +426,81 @@ def geom_volume_cost_view_ref(D, planes, consts, num_slices: int) -> torch.Tenso
 _GEOM_SIG = {
     "geom_cost_launch": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
     ]
 }
+# H4 stages every view's constants in one block's shared memory (144 bytes a view)
+MAX_GEOM_VIEWS = 256
 
 
-def geom_volume_cost_view(D, planes, consts, num_slices: int) -> torch.Tensor:
-    """Kernel H4 wrapper (for the TPU kernel ``_geom_kernel``): geometric
-    costs [C, H, W] from a source view's depth volume D [K, H, W]."""
+def _check_geom(D, planes, consts, num_slices: int, views: bool = False):
+    """Check the geometric-cost inputs: D [K, H, W] and consts [1, 33], or
+    with ``views`` D [NV, K, H, W] and consts [NV, 1, 33]; K = num_slices."""
     if planes.dim() != 4 or planes.shape[1] != 4 or planes.dtype != torch.float32:
         raise ValueError("planes must be [C, 4, H, W] float32")
-    C, _, H, W = planes.shape
-    if D.dim() != 3 or tuple(D.shape) != (num_slices, H, W) or D.dtype != torch.float32:
-        raise ValueError(f"D must be f32 [{num_slices}, {H}, {W}]")
-    if tuple(consts.shape) != (1, _NGEOM) or consts.dtype != torch.float32:
-        raise ValueError("geom consts must be [1, 33] float32")
+    _, _, H, W = planes.shape
+    lead = D.shape[:1] if views else ()
+    if (D.dim() != 3 + len(lead) or tuple(D.shape[-3:]) != (num_slices, H, W)
+            or D.dtype != torch.float32):
+        raise ValueError(f"D must be f32 [{'NV, ' if views else ''}{num_slices}, {H}, {W}], "
+                         f"got {tuple(D.shape)}")
+    if tuple(consts.shape) != (*lead, 1, _NGEOM) or consts.dtype != torch.float32:
+        raise ValueError(f"geom consts must be [{'NV, ' if views else ''}1, 33] float32")
     if len({D.device, planes.device, consts.device}) != 1:
         raise ValueError("inputs on several devices")
-    if D.device.type == "cpu":
-        return geom_volume_cost_view_ref(D, planes, consts, num_slices)
+
+
+def _launch_geom(D, planes, consts, num_slices: int) -> torch.Tensor:
+    """One H4 launch: D [NV, K, H, W], consts [NV, 1, 33] on a CUDA card ->
+    costs [NV, C, H, W]. The caller has checked the shapes."""
     if D.device.type != "cuda":
         raise ValueError(f"unsupported device {D.device}")
+    NV = D.shape[0]
+    C, _, H, W = planes.shape
+    if not 1 <= NV <= MAX_GEOM_VIEWS:
+        raise ValueError(f"the CUDA geometric kernel takes 1 to {MAX_GEOM_VIEWS} views")
+    # 32-bit offsets: over a chunk of 4 views' D, over planes, over the costs
+    if max(4 * num_slices, 4 * C, NV * C) * H * W >= 2 ** 32:
+        raise ValueError("D, planes or the costs exceed the kernel's 32-bit offsets")
     D, planes, consts = D.contiguous(), planes.contiguous(), consts.contiguous()
-    out = torch.empty((C, H, W), dtype=torch.float32, device=D.device)
+    out = torch.empty((NV, C, H, W), dtype=torch.float32, device=D.device)
     lib = _build.load("geom_cost", _GEOM_SIG)
     err = lib.geom_cost_launch(
-        D.data_ptr(), planes.data_ptr(), consts.data_ptr(), C, H, W, num_slices,
+        D.data_ptr(), planes.data_ptr(), consts.data_ptr(), NV, C, H, W, num_slices,
         out.data_ptr(), torch.cuda.current_stream(D.device).cuda_stream,
     )
     _build.check(err, "geom_cost")
-    geom_volume_cost_view.launches += 1
     return out
+
+
+def geom_cost_views(D, planes, consts, num_slices: int) -> torch.Tensor:
+    """Kernel H4 wrapper, every source view in one launch: D [NV, K, H, W]
+    f32 (``VolumeSet.D`` as it is), consts [NV, 1, 33] -> geometric costs
+    [NV, C, H, W]. Its plain version is :func:`geom_volume_cost_view_ref`
+    of each view."""
+    _check_geom(D, planes, consts, num_slices, views=True)
+    if D.device.type == "cpu":
+        return torch.stack([geom_volume_cost_view_ref(D[v], planes, consts[v], num_slices)
+                            for v in range(D.shape[0])])
+    out = _launch_geom(D, planes, consts, num_slices)
+    geom_cost_views.launches += 1
+    return out
+
+
+geom_cost_views.launches = 0
+
+
+def geom_volume_cost_view(D, planes, consts, num_slices: int) -> torch.Tensor:
+    """Kernel H4 wrapper, one source view (the entry of the TPU kernel
+    ``_geom_kernel``): geometric costs [C, H, W] from a source view's depth
+    volume D [K, H, W] and consts [1, 33]; the kernel of
+    :func:`geom_cost_views` with one view."""
+    _check_geom(D, planes, consts, num_slices)
+    if D.device.type == "cpu":
+        return geom_volume_cost_view_ref(D, planes, consts, num_slices)
+    out = _launch_geom(D[None], planes, consts[None], num_slices)
+    geom_volume_cost_view.launches += 1
+    return out[0]
 
 
 geom_volume_cost_view.launches = 0

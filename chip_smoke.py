@@ -19,16 +19,23 @@ and no ``ok`` line is printed:
    (a sweep chunk) and C=1 (the K2 entry point), then over all four source
    views at C=9 through ``ncc_cost_views`` (what the main path launches),
    with planes the folded slice coordinate cannot take (w = 0, NaN, an
-   infinite normal); H3 at j2=25 and 49; H4 at C=8. Times kernel, plain
-   version and, where one PyTorch call computes the same function, that
-   call (``F.grid_sample`` for H1): H1, H2 and H3 in device time (20 calls
-   replayed from a CUDA graph, warmed up) and per call (CUDA events).
+   infinite normal); H3 at j2=25 and 49; H4 at C=8 over the depth volumes
+   of all four source views through ``geom_cost_views`` (what the main
+   path launches), bit-exact, with the same kinds of degenerate planes
+   (NaN in the plain version's lanes) and with views that do not share one
+   slice grid (the kernel's per-view branch), and its one-view entry equal
+   to its slice. Times kernel, plain version and, where one PyTorch call
+   computes the same function, that call (``F.grid_sample`` for H1): H1,
+   H2, H3 and H4 in device time (20 calls replayed from a CUDA graph,
+   warmed up) and per call (CUDA events); H4 also as four one-view calls
+   and a ``torch.stack``, as the main path evaluated it before.
 3. main path: renders the 5-view 640x480 ring scene, writes it as a
    dataset, and runs ``scene.run_scene(device="cuda")``: one round of 4
    passes x 5 views (FIRST_INIT + 3 geometric REFINE_ITER) and ETH fusion.
    The launch counters are zeroed just before and read just after; every
-   kernel of that path (H1, H2 through ``ncc_cost_views``, H4) must have
-   launched, and H3 and the one-view H2 wrapper must not. Checks: median
+   kernel of that path (H1, H2 through ``ncc_cost_views``, H4 through
+   ``geom_cost_views``) must have launched, and H3 and the one-view H2 and
+   H4 wrappers must not. Checks: median
    relative depth error on interior pixels < 0.01 against ground truth,
    > 1000 fused points, median point-to-plane distance < 0.05.
 4. cols: holds H5 gather_cols (bit-exact) and H6 contract_lookup (tent
@@ -50,7 +57,11 @@ and no ``ok`` line is printed:
    be bit-exact with their plain versions (NaN where the plain version has
    NaN), H7 equal to H5's columns, H2 within 1e-4 and its rebased entries
    equal to it; E sampled at k must stay within the thresholds of
-   tests/test_volume.py:87-90 of the direct warp. Times kernel, plain
+   tests/test_volume.py:87-90 of the direct warp. Then H7 bit-exact on edge
+   cases: one row, a row count that leaves a block part-full, indices out
+   of range at both ends, 72-byte rows, a table 2 bytes past alignment and
+   int32 indices, and on D's rows (which take its warp-a-row path) one
+   row, indices out of range and int32 indices. Times kernel, plain
    version and library yardstick (index_select, 5-D grid_sample) in device
    time (20 calls replayed from a CUDA graph), and the kernel's wrapper
    per call.
@@ -58,16 +69,17 @@ and no ``ok`` line is printed:
    with geometric consistency and the APD weak machinery at 640x480x5
    (prior from the ground truth, a 19200-pixel weak box, worklist 24576,
    ransac threshold 0.00875): wall ms of 5 passes after a warm-up, the
-   launches of the kernels in one pass; median relative depth error < 0.01 over
-   interior pixels and over the weak box.
+   launches of the kernels in one pass (H4 through ``geom_cost_views``; H3
+   and the one-view H2 and H4 wrappers must not launch); median relative
+   depth error < 0.01 over interior pixels and over the weak box.
 7. two rounds: a 1280x960 five-view scene with a textureless window
    through ``scene.run_scene``: two rounds (40 view-passes), the second
    with the weak machinery, then ETH fusion. H1, H2, H4, H5, H6 must have
    launched and > 1000 weak pixels must enter round 1's REFINE_INIT pass of
    view 0. Checks: per-view median relative depth error < 0.01 on interior
    pixels, < 0.02 on view 0's textureless core, > 1000 fused points and
-   median point-to-plane distance < 0.05. H3 and the one-view H2 wrapper
-   must not have launched.
+   median point-to-plane distance < 0.05. H3 and the one-view H2 and H4
+   wrappers must not have launched.
 
 Then it prints the ``kernels`` JSON line (launches: H1, H2 and H4 from
 phase 3, H5-H6 from phase 7, H3, H7 and H8 from phase 5; times in device
@@ -501,41 +513,86 @@ def phase_kernels(dev, inputs):
         f"{b_by}; E elements touched {touched}); no single PyTorch call computes it")
     del Es
 
-    # ---- H4 geom_cost, C=8 sweep planes over the trunc depth volume
-    gconsts = ncc.add_depth_volumes(vs, dm[:2], cams, 1.2, 9.6).geom_consts[0]
-    planes_cf = cases["C8_sweep"]
-    out = nv.geom_volume_cost_view(D, planes_cf, gconsts, K)
-    ref = nv.geom_volume_cost_view_ref(D, planes_cf, gconsts, K)
-    err = float((out - ref).abs().max())
-    log(f"kernel H4 geom_cost C=8: max abs {err:.3e} (tol 1e-4)")
-    if not err < 1e-4:
-        raise AssertionError("H4 disagrees with its plain version")
-    C = planes_cf.shape[0]
-    ms = time_ms(lambda: nv.geom_volume_cost_view(D, planes_cf, gconsts, K), 20)
-    plain = time_ms(lambda: nv.geom_volume_cost_view_ref(D, planes_cf, gconsts, K), 3, 1)
-    touched = geom_touched(planes_cf, gconsts, K)
-    b_ms, b_by = bound(touched * 4 + C * Hp * Wp * (16 + 4), C * Hp * Wp * OPS_H4)
+    # ---- H4 geom_cost: the trunc depth volumes of all four source views
+    # (what the main path's geometric passes read, 786 MB), C=8 sweep planes
+    vs_d = ncc.add_depth_volumes(vs, dm, cams, 1.2, 9.6)
+    Ds, gconsts = vs_d.D, vs_d.geom_consts
+    del vs_d
+    pl8 = cases["C8_sweep"]
+    C = pl8.shape[0]
+    # planes the divisions make degenerate: w = 0 (once with n0 = 0 too), a
+    # NaN plane, an infinite normal
+    deg8 = pl8.clone()
+    deg8[0, 3, 10, 20:24] = 0.0
+    deg8[0, 0, 10, 20] = 0.0
+    deg8[1, :, 11, 30] = float("nan")
+    deg8[2, 0, 12, 40] = float("inf")
+    # views that do not share one slice grid: the kernel's per-view branch
+    g_mixed = gconsts.clone()
+    g_mixed[2, 0, 5] *= 1.01
+
+    def plain_geom(planes_cf, g):
+        return torch.stack([nv.geom_volume_cost_view_ref(Ds[v], planes_cf, g[v], K)
+                            for v in range(V - 1)])
+
+    for name, pcf, g in (("C8", pl8, gconsts), ("degenerate planes", deg8, gconsts),
+                         ("views without a shared slice grid", pl8, g_mixed)):
+        out, ref = nv.geom_cost_views(Ds, pcf, g, K), plain_geom(pcf, g)
+        nan = torch.isnan(ref)
+        exact = (torch.equal(torch.isnan(out), nan)
+                 and torch.equal(out[~nan].view(torch.int32), ref[~nan].view(torch.int32)))
+        log(f"kernel H4 geom_cost_views {name} over {V - 1} views: bit-exact {exact}, NaN in "
+            f"{int(nan.sum())} lanes as the plain version (tol: bit-exact, NaN where the plain "
+            "version has NaN)")
+        if not exact or (name == "degenerate planes") != bool(nan.any()):
+            raise AssertionError(f"H4 disagrees with its plain version ({name})")
+    one = nv.geom_volume_cost_view(Ds[1], pl8, gconsts[1], K)
+    out = nv.geom_cost_views(Ds, pl8, gconsts, K)
+    if not torch.equal(one.view(torch.int32), out[1].view(torch.int32)):
+        raise AssertionError("H4's one-view entry differs from its views entry")
+    del out, ref, one
+
+    def h4_views():
+        return nv.geom_cost_views(Ds, pl8, gconsts, K)
+
+    def h4_one_view_calls():  # the parent's evaluation: one call a view, then a stack
+        return torch.stack([nv.geom_volume_cost_view(Ds[v], pl8, gconsts[v], K)
+                            for v in range(V - 1)])
+
+    ms, call = graph_ms(h4_views), time_ms(h4_views, 20)
+    ms1 = graph_ms(lambda: nv.geom_volume_cost_view(Ds[0], pl8, gconsts[0], K))
+    ms_calls, call_calls = graph_ms(h4_one_view_calls), time_ms(h4_one_view_calls, 10)
+    plain = time_ms(lambda: plain_geom(pl8, gconsts), 3, 1)
+    touched = [geom_touched(pl8, gconsts[v], K) for v in range(V - 1)]
+    b_ms, b_by = bound(sum(touched) * 4 + C * 4 * Hp * Wp * 4 + (V - 1) * C * Hp * Wp * 4,
+                       (V - 1) * C * Hp * Wp * OPS_H4)
+    b1, b1_by = bound(touched[0] * 4 + C * Hp * Wp * (16 + 4), C * Hp * Wp * OPS_H4)
     rows.append(dict(name="geom_cost", route="cuda", source="apdmvs_tpu_torch/csrc/geom_cost.cu",
-                     replaces="apdmvs_tpu/ops/ncc_volume.py:1370", max_abs_err=err, ms=ms,
+                     replaces="apdmvs_tpu/ops/ncc_volume.py:1370", max_abs_err=0.0, ms=ms,
                      plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None))
-    log(f"kernel H4 geom_cost: {ms:.3f} ms (plain {plain:.3f}, bound {b_ms:.4f} by {b_by}; "
-        f"D elements touched {touched}) at C=8 {Hp}x{Wp}")
-    log(f"kernel H4 geom_cost: device "
-        f"{graph_ms(lambda: nv.geom_volume_cost_view(D, planes_cf, gconsts, K)):.4f} ms")
+    log(f"kernel H4 geom_cost_views C=8 over {V - 1} views: device {ms:.4f} ms, {call:.4f} ms a "
+        f"call (plain {plain:.3f}; bound {b_ms:.4f} by {b_by}, {b_ms / ms:.2f} of it; D elements "
+        f"touched {sum(touched)}); four one-view calls + torch.stack device {ms_calls:.4f} ms, "
+        f"{call_calls:.4f} ms a call; no single PyTorch call computes it")
+    log(f"kernel H4 geom_volume_cost_view C=8 one view: device {ms1:.4f} ms (bound {b1:.4f} by "
+        f"{b1_by})")
+    del Ds
     torch.cuda.synchronize()
     return rows
 
 
 # the launch counters of the one-round path (the weak machinery's H5, H6
-# run only in rounds after the first; H2 runs as ncc_cost_views, every
-# source view in one launch); of the two-round scene; and of the ops entry
+# run only in rounds after the first; H2 and H4 run as ncc_cost_views and
+# geom_cost_views, every source view in one launch); of the two-round
+# scene; and of the ops entry
 # points that no default path calls (H7, H8, H3 with H2's two rebased
 # entries) with H2 on K10's case
-ONE_ROUND_KERNELS = ("build_volume", "ncc_cost_views", "geom_cost")
+ONE_ROUND_KERNELS = ("build_volume", "ncc_cost_views", "geom_cost_views")
 TWO_ROUND_KERNELS = ONE_ROUND_KERNELS + ("gather_cols", "contract_lookup")
 OPS_KERNELS = ("volume_sample", "gather_rows", "gather_rows_sorted", "ncc_cost", "rebase_view")
-# counters that no default path may advance: H2 one view at a time, and H3
-NOT_ON_MAIN_PATH = ("ncc_cost", "rebase_view")
+# counters that no default path may advance: H2 and H4 one view at a time,
+# and H3
+NOT_ON_MAIN_PATH = ("ncc_cost", "rebase_view", "geom_cost")
 # K10's two windows are BAND2 = 32 slices each (apdmvs_tpu/ops/ncc_volume.py:81)
 BAND2 = 32
 # grid_sample counts as computing volume_sample's function if it agrees with
@@ -549,7 +606,7 @@ def _counters():
 
     return {"build_volume": vol.build_volume, "ncc_cost": nv.ncc_cost,
             "ncc_cost_views": nv.ncc_cost_views, "rebase_view": nv.build_rebased_view,
-            "geom_cost": nv.geom_volume_cost_view,
+            "geom_cost": nv.geom_volume_cost_view, "geom_cost_views": nv.geom_cost_views,
             "gather_cols": cols.gather_cols, "contract_lookup": cols.contract_lookup,
             "gather_rows": cols.gather_rows, "gather_rows_sorted": cols.gather_rows_sorted,
             "volume_sample": vol.volume_sample}
@@ -950,14 +1007,44 @@ def phase_ops(dev, inputs, flag, worklist):
         distinct = int(torch.unique(idx_cl).numel())
         b_ms, b_by = bound((distinct + M) * row_bytes + M * idx.element_size(), 0.0)
         log(f"kernel H7 {entry.__name__} {name}: {ms:.4f} ms device, {call:.4f} ms a call "
-            f"(plain {plain:.4f}, index_select {lib:.4f}, bound {b_ms:.4f} by {b_by}; M {M}, "
-            f"distinct rows {distinct})")
+            f"(plain {plain:.4f}, index_select {lib:.4f}, {lib / ms:.3f}x the kernel's time; "
+            f"bound {b_ms:.4f} by {b_by}, {b_ms / ms:.2f} of it; M {M}, distinct rows "
+            f"{distinct})")
         h7[name] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
     rows.append(dict(name="gather_rows", route="cuda", source="apdmvs_tpu_torch/csrc/gather_rows.cu",
                      replaces="apdmvs_tpu/ops/cols.py:151",
                      launches=launches["gather_rows"] + launches["gather_rows_sorted"],
                      max_abs_err=err_h7, **h7["c36 sorted"]))
-    del tables, got_rows
+    # edge cases of the kernel's paths and unit widths, each bit-exact:
+    # one row; a row count that leaves the last block part-full; indices
+    # out of range at both ends; 72-byte rows (8-byte units); a contiguous
+    # view that starts 2 bytes past an aligned base (2-byte units); int32
+    # indices; and the same on D's rows, which take the warp-a-row path
+    c36, idx36 = tables["c36 sorted"], gcases["c36 sorted"][2]
+    R36 = c36.shape[0]
+    flat = c36.reshape(-1)
+    shifted = flat[1:1 + (R36 - 1) * c36.shape[1]].view(R36 - 1, c36.shape[1])
+    ends = torch.cat([torch.tensor([-5, -1, R36, R36 + 100], device=dev), idx36[:1001]])
+    dtab, idxd = tables["d"], gcases["d"][2]
+    ends_d = torch.cat([torch.tensor([-5, -1, dtab.shape[0], dtab.shape[0] + 100], device=dev),
+                        idxd[:1001]])
+    edge = {"M = 1": (c36, idx36[:1]), "M = 1001": (c36, idx36[:1001]),
+            "indices out of range": (c36, ends),
+            "72-byte rows": (c36[:, :36].contiguous(), idx36),
+            "table 2 bytes past alignment": (shifted, idx36.clamp(max=R36 - 2)),
+            "int32 indices": (c36, idx36.to(torch.int32)),
+            "D rows, M = 1": (dtab, idxd[:1]),
+            "D rows, indices out of range": (dtab, ends_d),
+            "D rows, int32 indices": (dtab, ends_d.to(torch.int32))}
+    for name, (table, idx) in edge.items():
+        out, ref = cols.gather_rows_sorted(table, idx), cols.gather_rows_ref(table, idx)
+        exact = torch.equal(out.view(torch.int16), ref.view(torch.int16))
+        log(f"kernel H7 edge case {name}: table {tuple(table.shape)} at byte offset "
+            f"{table.data_ptr() % 16} mod 16, idx {tuple(idx.shape)} {idx.dtype}: bit-exact "
+            f"{exact} (tol: bit-exact)")
+        if not exact:
+            raise AssertionError(f"H7 disagrees with its plain version ({name})")
+    del tables, got_rows, shifted
 
     # ---- H2 on K10's case: the ground-truth plane and a random-depth plane
     # in one candidate group, so a tile's slices span nearly all of K
@@ -1032,6 +1119,9 @@ def phase_flagship(dev, inputs, flag):
         f"{cap}): " + ", ".join(f"{w:.1f}" for w in walls)
         + f" ms; median {float(np.median(walls)):.1f} ms; launches in one pass "
         + json.dumps(launches))
+    stray = [n for n in NOT_ON_MAIN_PATH if launches[n] != 0]
+    if stray or launches["geom_cost_views"] == 0:
+        raise AssertionError(f"the flagship pass launched {stray} or no geom_cost_views")
     d = out.depth.cpu().numpy()
     gt = depths[0]
     interior = np.zeros((H, W), bool)
@@ -1187,10 +1277,11 @@ def main() -> int:
     del flag, worklist
     torch.cuda.empty_cache()
     launches_2r = phase_two_rounds(dev)
-    # each kernel's launches on its slice's main path: H1, H2 (both its
-    # wrappers) and H4 on the one-round 640x480 scene, H5-H6 on the two-round
+    # each kernel's launches on its slice's main path: H1, H2 and H4 (both
+    # wrappers of each) on the one-round 640x480 scene, H5-H6 on the two-round
     # 1280x960 scene, H3, H7, H8 in the ops phase
     launches["ncc_cost"] += launches["ncc_cost_views"]
+    launches["geom_cost"] += launches["geom_cost_views"]
     for r in rows:
         if r["name"] == "rebase_view":
             r["launches"] = ops_launches["rebase_view"]

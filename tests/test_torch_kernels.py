@@ -14,7 +14,8 @@ reference package itself runs on the CPU, on the same inputs:
                        float32 emulation of the kernel's folded slice
                        coordinate against the same mirror
   H3 rebase_view       vs the CPU branch of build_rebased_view (bit-exact)
-  H4 geom_cost         vs geom_volume_cost_view_ref (max abs < 1e-4)
+  H4 geom_cost         vs geom_volume_cost_view_ref (max abs < 1e-4), one view
+                       and geom_cost_views over every source view
 
 The CUDA kernels themselves run only on the card (chip_smoke.py holds each
 against these plain versions there).
@@ -297,6 +298,31 @@ def test_geom_cost_matches_mirror(scene, case):
     assert float(np.abs(out.numpy() - ref).max()) < 1e-4
 
 
+@pytest.mark.parametrize("case", ["oracle", "perturbed", "sweep_chunk"])
+def test_geom_cost_views_matches_mirror(scene, case):
+    """Every source view of the fixture in one call, as the cost harness
+    makes it, against the mirror view by view."""
+    planes = _plane_cases(scene)[case]
+    jvs, tvs = scene["jvs"], scene["tvs"]
+    out = tnv.geom_cost_views(tvs.D, t(planes), tvs.geom_consts, K)
+    assert out.shape == (tvs.D.shape[0],) + planes.shape[:1] + planes.shape[2:]
+    for v in range(tvs.D.shape[0]):
+        ref = np.asarray(jnv.geom_volume_cost_view_ref(
+            jvs.D[v], jnp.asarray(planes), jvs.geom_consts[v], K))
+        assert float(np.abs(out[v].numpy() - ref).max()) < 1e-4
+
+
+def test_geom_cost_one_view_is_a_slice_of_views(scene):
+    """The one-view entry (K7's signature) gives the views entry's slice of
+    that view bit for bit."""
+    planes = t(_plane_cases(scene)["perturbed"])
+    tvs = scene["tvs"]
+    views = tnv.geom_cost_views(tvs.D, planes, tvs.geom_consts, K)
+    for v in range(tvs.D.shape[0]):
+        one = tnv.geom_volume_cost_view(tvs.D[v], planes, tvs.geom_consts[v], K)
+        assert torch.equal(one.view(torch.int32), views[v].view(torch.int32))
+
+
 def test_pack_consts_match(scene):
     ju, jd, tu, td = _u_grid()
     jwc = jgeom.warp_constants(scene["jcams"])
@@ -321,6 +347,10 @@ def test_wrappers_check_their_inputs(scene):
         tnv.build_rebased_view(E, torch.zeros(ref_pad.shape), K, j2=K + 1)
     with pytest.raises(ValueError):
         tnv.geom_volume_cost_view(tvs.D[0], torch.zeros((1, 4, 48, 128)), consts, K)
+    with pytest.raises(ValueError):  # one view's geom consts for several views
+        tnv.geom_cost_views(tvs.D, planes, tvs.geom_consts[0], K)
+    with pytest.raises(ValueError):  # D of another slice count
+        tnv.geom_cost_views(tvs.D, planes, tvs.geom_consts, K + 1)
     with pytest.raises(ValueError):
         tvol.build_volume(torch.zeros(8, 8), torch.eye(3), torch.zeros(3), torch.eye(3), 16,
                           128, 0.1, 0.01, 4, dtype=torch.float32)  # bilinear writes bf16

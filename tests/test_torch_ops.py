@@ -166,6 +166,33 @@ def test_gather_rows_matches_mirror(entry, order, dtype):
     assert torch.equal(got.view(bits), want.view(bits))
 
 
+@pytest.mark.parametrize("case", ["row_72_bytes", "column_slice", "int32_vs_int64"])
+def test_gather_rows_edge_cases(case):
+    """Cases the kernel moves in narrower units or reads as they come: rows
+    that are not a multiple of 16 bytes, a table that is a non-contiguous
+    slice of a wider one, and int32 indices against the same int64 ones."""
+    rng = np.random.RandomState(8)
+    R, M = 200, 131
+    idx = rng.randint(-3, R + 3, M)
+    if case == "row_72_bytes":  # 36 bf16 a row
+        table = torch.from_numpy(rng.rand(R, 36).astype(np.float32)).to(torch.bfloat16)
+    else:
+        table = torch.from_numpy(rng.rand(R, 48).astype(np.float32))
+    if case == "column_slice":
+        table = table[:, 5:29]
+        assert not table.is_contiguous()
+    want = tcols.gather_rows_ref(table, torch.from_numpy(idx.astype(np.int64)))
+    mirror = convert.tensor(jcols.gather_rows_ref(jnp.asarray(table.float().numpy()),
+                                                  jnp.asarray(idx.astype(np.int32))))
+    assert torch.equal(want.float(), mirror)
+    bits = torch.int16 if table.dtype == torch.bfloat16 else torch.int32
+    for dtype in (torch.int64, torch.int32):
+        for entry in (tcols.gather_rows, tcols.gather_rows_sorted):
+            got = entry(table, torch.from_numpy(idx).to(dtype))
+            assert got.shape == (M, table.shape[1]) and got.dtype == table.dtype
+            assert torch.equal(got.view(bits), want.view(bits))
+
+
 @pytest.mark.parametrize("entry", ["gather_rows", "gather_rows_sorted"])
 def test_gather_rows_empty_worklist(entry):
     table = torch.rand(10, 6)

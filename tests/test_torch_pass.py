@@ -40,7 +40,7 @@ import torch
 from _torch_parity import DMAX, DMIN, JaxDraws, ring_scene, t
 from apdmvs_tpu import ncc as jncc, pipeline as jpipe
 from apdmvs_tpu.params import PassConfig, PixelState, RunState
-from apdmvs_tpu_torch import convert, pipeline as tpipe
+from apdmvs_tpu_torch import convert, ncc as tncc, pipeline as tpipe
 from apdmvs_tpu_torch.ops import ncc_volume as tnv
 
 torch.set_num_threads(2)
@@ -176,6 +176,36 @@ def test_refine_iter_pass_reads_e_alone(first_init, monkeypatch):
     assert calls["build_rebased_view"] == 0
     assert calls["ncc_cost"] == 0
     assert calls["ncc_cost_views"] > 0
+    assert bool(torch.isfinite(out.depth).all())
+
+
+def test_refine_iter_geom_pass_evaluates_all_views_at_once(first_init, monkeypatch):
+    """A geometric REFINE_ITER pass evaluates every geometric cost over all
+    source views in one call, never one view at a time."""
+    sc, _, tvs, _, tout0 = first_init
+    calls = {"geom_cost_views": 0, "geom_volume_cost_view": 0}
+
+    def spy(name):
+        fn = getattr(tnv, name)
+
+        def counted(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return counted
+
+    for name in calls:
+        monkeypatch.setattr(tnv, name, spy(name))
+    V, H, W = sc["V"], sc["H"], sc["W"]
+    cams = convert.to_cameras(sc["jcams"])
+    tvs_g = tncc.add_depth_volumes(tvs, t(sc["depths"]), cams, DMIN, DMAX)
+    prior = tpipe.PassState(depth=tout0.depth, normal_world=tout0.normal_world,
+                            pixel_state=tout0.pixel_state, selected=tout0.selected)
+    cfg = PassConfig(state=RunState.REFINE_ITER, geom_consistency=True, use_APD=False,
+                     max_iterations=3, weak_peak_radius=4)
+    out = tpipe.patchmatch_pass(cams, t(np.arange(V) > 0), prior,
+                                JaxDraws(jax.random.PRNGKey(6), H, W), cfg, tvs_g)
+    assert calls["geom_volume_cost_view"] == 0
+    assert calls["geom_cost_views"] > 0
     assert bool(torch.isfinite(out.depth).all())
 
 
