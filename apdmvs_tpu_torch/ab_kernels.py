@@ -1,6 +1,8 @@
-"""Device times of H1, H2, H4 and H7 of the port found under ROOT.
+"""Device times of H1, H2, H4, H5, H6 and H7 of the port found under ROOT.
 
-    python apdmvs_tpu_torch/ab_kernels.py ROOT
+    python apdmvs_tpu_torch/ab_kernels.py ROOT [GROUP ...]
+
+GROUP is any of h1, h2, h4, h5, h6, h7 (default: all of them).
 
 Imports ``apdmvs_tpu_torch`` from ROOT (a checkout, or a commit unpacked
 with ``git archive``), builds its kernels and times, on the card, in device
@@ -23,7 +25,19 @@ plane fields of ``chip_smoke.py`` phase 2):
   index sets (bench.py's flagship worklist: C36's rows at the weak pixels
   sorted, C9's at their anchors, D's at the weak pixels), the sorted case
   also with int32 indices, and ``torch.index_select`` on each as the
-  library yardstick.
+  library yardstick;
+- H5 ``gather_cols`` on the flagship's volumes at its worklist: C36 and D
+  at the weak pixels (24576 slots), C9 at their anchors (196608 slots),
+  each beside ``vol[:, :, ys, xs]`` (the same copy as one indexing call);
+- H6 ``contract_lookup``, each case first held against its plain version
+  (tent within 1.2e-7 with the same NaN lanes, nearest bit-exact): on the
+  first call of each kind (table, B) of one flagship pass, captured with
+  its inputs (``H6_pass_*``, ``trace_pass.flagship_h6_calls``); on the
+  columns H5 gives at the flagship worklist, at the lookup slices of the
+  weak sweep's candidates (``trace_pass.weak_lookups``), B=10 and 5: C36
+  and C9 tent, D nearest; and C9 tent with k in a 4-slice band and over all
+  of K (``H6_c9_tent_band_B10``, ``H6_c9_tent_spread_B10``). Each nearest
+  case also beside ``torch.gather`` along K.
 
 It prints one line ``ABK ROOT {json}`` of milliseconds, and the card's name
 and power limit. To compare two commits on one card, run it in fresh
@@ -60,7 +74,28 @@ def graph_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def main(root: str) -> None:
+GROUPS = ("h1", "h2", "h4", "h5", "h6", "h7")
+
+
+def _helpers(root: str):
+    """``trace_pass`` of the package under ROOT, which builds the flagship
+    state and the H6 inputs; for a package whose ``trace_pass`` predates
+    ``weak_lookups`` and ``flagship_h6_calls``, the ``trace_pass`` beside
+    this script, run on the package under ROOT."""
+    from apdmvs_tpu_torch import trace_pass
+
+    if hasattr(trace_pass, "flagship_h6_calls"):
+        return trace_pass
+    import importlib.util
+
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)), "trace_pass.py")
+    spec = importlib.util.spec_from_file_location("_ab_trace_pass", here)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def main(root: str, groups=GROUPS) -> None:
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import inspect
@@ -94,10 +129,11 @@ def main(root: str) -> None:
         return vol.build_volume(imgs[v], wc.M[v], wc.b[v], cams.K[0], Hp, Wp, u_min, du, K,
                                 pad_y=nv.PAD_Y, pad_x=nv.PAD_X)
 
-    times["H1_E"] = graph_ms(lambda: build_e(1))
-    times["H1_D"] = graph_ms(lambda: vol.build_volume(
-        dm[1], wc.M[1], wc.b[1], cams.K[0], Hp, Wp, u_min, du, K, pad_y=0, pad_x=0,
-        dtype=torch.float32, trunc=True))
+    if "h1" in groups:
+        times["H1_E"] = graph_ms(lambda: build_e(1))
+        times["H1_D"] = graph_ms(lambda: vol.build_volume(
+            dm[1], wc.M[1], wc.b[1], cams.K[0], Hp, Wp, u_min, du, K, pad_y=0, pad_x=0,
+            dtype=torch.float32, trunc=True))
 
     Es = torch.stack([build_e(v) for v in range(1, V)])
     E = Es[0]
@@ -131,63 +167,114 @@ def main(root: str) -> None:
         "C1": noisy(0.01, 9)[None],
     }
     cases = {name: ncc._pad_planes_cf(pl, Hp, Wp) for name, pl in cases.items()}
-    for name, pcf in cases.items():
-        times[f"H2_{name}_E"] = graph_ms(lambda: nv.ncc_cost(E, ref_pad, pcf, consts, K))
+    if "h2" in groups:
+        for name, pcf in cases.items():
+            times[f"H2_{name}_E"] = graph_ms(lambda: nv.ncc_cost(E, ref_pad, pcf, consts, K))
 
-    if "R_pad" in inspect.signature(nv.ncc_cost).parameters:
-        base = ncc._base_slice_map(vs, gt)
-        for name, j2 in (("C9", nv.J2_REBASE), ("C8_sweep", nv.SWEEP_J2)):
-            R, bf = nv.build_rebased_view(E, base, K, j2=j2)
-            pcf = cases[name]
-            times[f"H2_{name}_R{j2}"] = graph_ms(
-                lambda: nv.ncc_cost(E, ref_pad, pcf, consts, K, R_pad=R, bf_pad=bf))
+        if "R_pad" in inspect.signature(nv.ncc_cost).parameters:
+            base = ncc._base_slice_map(vs, gt)
+            for name, j2 in (("C9", nv.J2_REBASE), ("C8_sweep", nv.SWEEP_J2)):
+                R, bf = nv.build_rebased_view(E, base, K, j2=j2)
+                pcf = cases[name]
+                times[f"H2_{name}_R{j2}"] = graph_ms(
+                    lambda: nv.ncc_cost(E, ref_pad, pcf, consts, K, R_pad=R, bf_pad=bf))
 
-    pcf = cases["C9"]
-    if hasattr(nv, "ncc_cost_views"):
-        times["H2_C9_4views"] = graph_ms(lambda: nv.ncc_cost_views(Es, ref_pad, pcf, consts_v, K))
-    else:
-        times["H2_C9_4views"] = graph_ms(
-            lambda: [nv.ncc_cost(Es[v], ref_pad, pcf, consts_v[v], K) for v in range(V - 1)])
+        pcf = cases["C9"]
+        if hasattr(nv, "ncc_cost_views"):
+            times["H2_C9_4views"] = graph_ms(
+                lambda: nv.ncc_cost_views(Es, ref_pad, pcf, consts_v, K))
+        else:
+            times["H2_C9_4views"] = graph_ms(
+                lambda: [nv.ncc_cost(Es[v], ref_pad, pcf, consts_v[v], K) for v in range(V - 1)])
 
-    # H4: the trunc depth volumes of the four source views, C=8
-    vs_d = ncc.add_depth_volumes(vs, dm, cams, 1.2, 9.6)
-    Ds, gconsts = vs_d.D, vs_d.geom_consts
-    pcf = cases["C8_sweep"]
-    times["H4_C8_1view"] = graph_ms(lambda: nv.geom_volume_cost_view(Ds[0], pcf, gconsts[0], K))
-    if hasattr(nv, "geom_cost_views"):
-        times["H4_C8_4views"] = graph_ms(lambda: nv.geom_cost_views(Ds, pcf, gconsts, K))
-    else:
-        times["H4_C8_4views"] = graph_ms(lambda: torch.stack([
-            nv.geom_volume_cost_view(Ds[v], pcf, gconsts[v], K) for v in range(V - 1)]))
-    del vs_d, Ds, Es
+    if "h4" in groups:
+        # H4: the trunc depth volumes of the four source views, C=8
+        vs_d = ncc.add_depth_volumes(vs, dm, cams, 1.2, 9.6)
+        Ds, gconsts = vs_d.D, vs_d.geom_consts
+        pcf = cases["C8_sweep"]
+        times["H4_C8_1view"] = graph_ms(
+            lambda: nv.geom_volume_cost_view(Ds[0], pcf, gconsts[0], K))
+        if hasattr(nv, "geom_cost_views"):
+            times["H4_C8_4views"] = graph_ms(lambda: nv.geom_cost_views(Ds, pcf, gconsts, K))
+        else:
+            times["H4_C8_4views"] = graph_ms(lambda: torch.stack([
+                nv.geom_volume_cost_view(Ds[v], pcf, gconsts[v], K) for v in range(V - 1)]))
+        del vs_d, Ds
+    del Es, vs
 
-    # H7: the ops phase's tables and index sets, from the flagship worklist
-    from apdmvs_tpu_torch import rng, trace_pass, weak
-    from apdmvs_tpu_torch.ops import cols
+    if {"h5", "h6", "h7"} & set(groups):
+        from apdmvs_tpu_torch.ops import cols
 
-    vsf, prior, cap, _ = trace_pass.flagship_state(images, depths, normals, cams, K)
-    ctx = ncc.make_context(cams, torch.arange(V, device=dev) > 0, H, W, vsf)
-    weak_xy = weak.compact_weak_pixels(prior.pixel_state, cap)
-    anchors, _ = weak.generate_anchors(ctx, prior.depth, prior.pixel_state, weak_xy,
-                                       rng.TorchDraws(0, H, W, dev), trace_pass.FLAGSHIP_CFG,
-                                       trace_pass.FLAGSHIP_RTH)
-    PH, PW = Hp + 2 * nv.PAD_Y, Wp + 2 * nv.PAD_X
-    wx, wy = weak_xy[:, 0], weak_xy[:, 1]
-    ax, ay = anchors.coords[:, 1:, 0].reshape(-1), anchors.coords[:, 1:, 1].reshape(-1)
-    idx_s = torch.sort(cols.flat_index(wx, wy, nv.PAD_Y, nv.PAD_X, PH, PW), stable=True)[0]
-    h7 = {
-        "c9_anchors": (cols.gather_rows, vsf.C9,
-                       cols.flat_index(ax, ay, nv.PAD_Y, nv.PAD_X, PH, PW)),
-        "c36_sorted": (cols.gather_rows_sorted, vsf.C36, idx_s),
-        "c36_sorted_int32": (cols.gather_rows_sorted, vsf.C36, idx_s.to(torch.int32)),
-        "d": (cols.gather_rows, vsf.D, cols.flat_index(wx, wy, 0, 0, H, W)),
-    }
-    for name, (entry, volm, idx) in h7.items():
-        table = cols.pack_volume_rows(volm).contiguous()
-        idx_cl = torch.clamp(idx, 0, table.shape[0] - 1)
-        times[f"H7_{name}"] = graph_ms(lambda: entry(table, idx))
-        times[f"index_select_{name}"] = graph_ms(lambda: torch.index_select(table, 0, idx_cl))
-        del table
+        tp = _helpers(root)
+        vsf, prior, cap, _ = tp.flagship_state(images, depths, normals, cams, K)
+        weak_xy, a, wcols, k_c, k_a = tp.weak_lookups(cams, vsf, prior, cap, K)
+        PH, PW = Hp + 2 * nv.PAD_Y, Wp + 2 * nv.PAD_X
+        wx, wy = weak_xy[:, 0], weak_xy[:, 1]
+        ax, ay = a[..., 0].reshape(-1), a[..., 1].reshape(-1)
+
+    if "h5" in groups:
+        # H5: C36 and D at the weak pixels, C9 at the anchors; the same copy as
+        # one indexing call on the clamped coordinates
+        for name, (volm, xs, ys, py, px) in {
+                "c36": (vsf.C36, wx, wy, nv.PAD_Y, nv.PAD_X),
+                "c9_anchors": (vsf.C9, ax, ay, nv.PAD_Y, nv.PAD_X),
+                "d": (vsf.D, wx, wy, 0, 0)}.items():
+            yi = torch.clamp(ys + py, 0, volm.shape[2] - 1)
+            xi = torch.clamp(xs + px, 0, volm.shape[3] - 1)
+            times[f"H5_{name}"] = graph_ms(lambda: cols.gather_cols(volm, xs, ys, py, px))
+            times[f"index_{name}"] = graph_ms(lambda: volm[:, :, yi, xi])
+
+    if "h6" in groups:
+        # H6, each case first held against its plain version: the lookups of
+        # a real flagship pass (the first call of each kind); the weak
+        # sweep's lookups of weak_lookups over the resident columns, B=10
+        # and 5; and C9 tent with k in a 4-slice band and over all of K
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(2)
+        R9 = wcols.c9.shape[2]
+        h6 = {f"pass_{kind}": call for kind, call in
+              sorted(tp.flagship_h6_calls(cams, vsf, prior, cap, 1).items())}
+        for name, table, kk, nearest in (("c36_tent", wcols.c36, k_c, False),
+                                         ("c9_tent", wcols.c9, k_a, False),
+                                         ("d_nearest", wcols.d, k_c, True)):
+            for B in (10, 5):
+                h6[f"{name}_B{B}"] = (table, kk[:B].contiguous(), nearest)
+        h6["c9_tent_band_B10"] = (wcols.c9, 40 + 4 * torch.rand((10, R9), generator=gen,
+                                                                device=dev), False)
+        h6["c9_tent_spread_B10"] = (wcols.c9, (K - 1) * torch.rand((10, R9), generator=gen,
+                                                                   device=dev), False)
+        for name, (table, kb, nearest) in h6.items():
+            out = cols.contract_lookup(table, kb, nearest=nearest)
+            ref = cols.contract_lookup_ref(table, kb, nearest=nearest)
+            err = float((out - ref).nan_to_num().abs().max())
+            if not torch.equal(torch.isnan(out), torch.isnan(ref)) or err > (
+                    0.0 if nearest else 1.2e-7):
+                raise AssertionError(f"H6 under {root} disagrees with its plain version ({name})")
+            times[f"H6_{name}"] = graph_ms(
+                lambda: cols.contract_lookup(table, kb, nearest=nearest))
+            if nearest:  # one torch.gather along K computes the nearest lookup
+                idx = torch.round(torch.nan_to_num(kb, nan=0.0).clamp(0, K - 1)).long()
+                idx = idx[None].expand(table.shape[0], -1, -1)
+                times[f"gather_{name}"] = graph_ms(lambda: torch.gather(table, 1, idx))
+        del h6
+
+    if "h7" in groups:
+        # H7: the ops phase's tables and index sets, from the flagship worklist
+        idx_s = torch.sort(cols.flat_index(wx, wy, nv.PAD_Y, nv.PAD_X, PH, PW), stable=True)[0]
+        h7 = {
+            "c9_anchors": (cols.gather_rows, vsf.C9,
+                           cols.flat_index(ax, ay, nv.PAD_Y, nv.PAD_X, PH, PW)),
+            "c36_sorted": (cols.gather_rows_sorted, vsf.C36, idx_s),
+            "c36_sorted_int32": (cols.gather_rows_sorted, vsf.C36, idx_s.to(torch.int32)),
+            "d": (cols.gather_rows, vsf.D, cols.flat_index(wx, wy, 0, 0, H, W)),
+        }
+        for name, (entry, volm, idx) in h7.items():
+            table = cols.pack_volume_rows(volm).contiguous()
+            idx_cl = torch.clamp(idx, 0, table.shape[0] - 1)
+            times[f"H7_{name}"] = graph_ms(lambda: entry(table, idx))
+            times[f"index_select_{name}"] = graph_ms(
+                lambda: torch.index_select(table, 0, idx_cl))
+            del table
     print(f"ABK {sys.argv[1]} " + json.dumps(times), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
@@ -195,4 +282,7 @@ def main(root: str) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    bad = set(sys.argv[2:]) - set(GROUPS)
+    if len(sys.argv) < 2 or bad:
+        sys.exit(f"usage: ab_kernels.py ROOT [{' '.join(GROUPS)} ...] (unknown: {sorted(bad)})")
+    main(sys.argv[1], tuple(sys.argv[2:]) or GROUPS)

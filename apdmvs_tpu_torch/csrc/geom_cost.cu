@@ -38,7 +38,14 @@
 //   the plain result;
 // - per view: the D gather, the warp, the reprojection, 4 divisions and
 //   the root. A plane's VCHUNK depth loads are issued together before its
-//   first cost: no branch guards one, so none waits on another.
+//   first cost: no branch guards one, so none waits on another;
+// - addresses: a chunk's D and cost bases are 64-bit pointers made once a
+//   thread; the slice, plane and pixel offsets added to them are 32-bit
+//   unsigned, and a chunk's next view's D is reached by stepping the
+//   pointer one view on, so the wrapper needs only max(K, 4C) * H * W <
+//   2^32 (one view's D, the planes), whatever NV * K * H * W is. 64-bit
+//   addresses rebuilt for every output cost H4 time (its SASS), and a
+//   pointer a view spilled at the 64-register cap.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -108,32 +115,36 @@ struct Pixel {
 // Costs of plane c against NB views from v0 for one pixel: the plane's 16
 // bytes, u and the nearest slice once, then the NB depth loads together
 // (no branch guards one), then the NB costs. Dc is view v0's D at this
-// pixel; view v0 + j is j * khw further on.
+// pixel and Oc its costs: 64-bit bases made once a thread. View v0 + j's D
+// is j whole views (j * khw) further on, reached by stepping a pointer, so
+// no offset over several views' D is formed in 32 bits; its costs are
+// (j * C + c) * hw on from Oc, which max(K, 4C) * H * W < 2^32 keeps in
+// 32 bits (NB <= 4).
 template <int NB>
 __device__ __forceinline__ void plane_views(const float4* __restrict__ sg4,
                                             const float* __restrict__ Dc, unsigned khw,
                                             const float (&mx)[NB], const float (&my)[NB],
                                             const float (&mz)[NB],
                                             const float* __restrict__ planes,
-                                            float* __restrict__ out, int v0, int c, int C,
+                                            float* __restrict__ Oc, int v0, int c, int C,
                                             const Pixel& p) {
   const float* pl = planes + (unsigned)c * 4u * p.hw + p.pix;
   const float n0 = __ldg(pl), n1 = __ldg(pl + p.hw), n2 = __ldg(pl + 2 * p.hw);
   const float w = __ldg(pl + 3 * p.hw);
   const float u = -((n0 * p.dirx + n1 * p.diry) + n2) / w;
-  const unsigned koff = (unsigned)nearest_slice(u, p.u_min, p.du, p.kmax) * p.hw;
+  const float* d = Dc + (unsigned)nearest_slice(u, p.u_min, p.du, p.kmax) * p.hw;
   float sd[NB];
 #pragma unroll
-  for (int j = 0; j < NB; ++j) sd[j] = __ldg(Dc + (j * khw + koff));
-  const unsigned o = ((unsigned)v0 * (unsigned)C + (unsigned)c) * p.hw + p.pix;
+  for (int j = 0; j < NB; ++j, d += khw) sd[j] = __ldg(d);
+  const unsigned o = (unsigned)c * p.hw;
   const unsigned chw = (unsigned)C * p.hw;
 #pragma unroll
   for (int j = 0; j < NB; ++j)
-    out[o + j * chw] = view_cost(sg4 + (v0 + j) * 9, mx[j], my[j], mz[j], u, sd[j], p.xs, p.ys);
+    Oc[o + j * chw] = view_cost(sg4 + (v0 + j) * 9, mx[j], my[j], mz[j], u, sd[j], p.xs, p.ys);
 }
 
-// This thread's planes against NB views from v0: per-view rows once, then
-// the planes, a whole group of PLANES unrolled.
+// This thread's planes against NB views from v0: per-view rows and the
+// 64-bit bases once, then the planes, a whole group of PLANES unrolled.
 template <int NB>
 __device__ __forceinline__ void view_chunk(const float4* __restrict__ sg4,
                                            const float* __restrict__ D,
@@ -144,12 +155,14 @@ __device__ __forceinline__ void view_chunk(const float4* __restrict__ sg4,
 #pragma unroll
   for (int j = 0; j < NB; ++j) m_rows(sg4 + (v0 + j) * 9, p.dirx, p.diry, mx[j], my[j], mz[j]);
   const float* Dc = D + (size_t)v0 * khw + p.pix;
+  float* Oc = out + (size_t)v0 * (unsigned)C * p.hw + p.pix;
   if (c0 + PLANES <= C) {
 #pragma unroll
     for (int i = 0; i < PLANES; ++i)
-      plane_views<NB>(sg4, Dc, khw, mx, my, mz, planes, out, v0, c0 + i, C, p);
+      plane_views<NB>(sg4, Dc, khw, mx, my, mz, planes, Oc, v0, c0 + i, C, p);
   } else {
-    for (int c = c0; c < C; ++c) plane_views<NB>(sg4, Dc, khw, mx, my, mz, planes, out, v0, c, C, p);
+    for (int c = c0; c < C; ++c)
+      plane_views<NB>(sg4, Dc, khw, mx, my, mz, planes, Oc, v0, c, C, p);
   }
 }
 
@@ -216,7 +229,7 @@ geom_cost_kernel(const float* __restrict__ D, const float* __restrict__ planes,
         const float u = -((n0 * dirx + n1 * diry) + n2) / w;
         const unsigned doff = (unsigned)nearest_slice(u, f1.x, f1.y, kmax) * hw + pix;
         const float sd = __ldg(D + (size_t)v * khw + doff);
-        out[((unsigned)v * (unsigned)C + (unsigned)c) * hw + pix] =
+        out[(size_t)v * (unsigned)C * hw + ((unsigned)c * hw + pix)] =
             view_cost(s, mx, my, mz, u, sd, xs, ys);
       }
     }

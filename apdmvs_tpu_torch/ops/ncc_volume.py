@@ -450,6 +450,15 @@ def _check_geom(D, planes, consts, num_slices: int, views: bool = False):
         raise ValueError("inputs on several devices")
 
 
+def geom_offsets_fit(num_slices: int, C: int, H: int, W: int) -> bool:
+    """Whether H4 can address these shapes: each view's D and costs start at
+    a 64-bit base, and the offsets inside a view (slice and pixel into D,
+    plane and pixel into the planes and the costs) are 32-bit, so one
+    view's D (K * H * W) and the planes (4C * H * W) must stay under 2^32
+    elements; the number of views does not count."""
+    return max(num_slices, 4 * C) * H * W < 2 ** 32
+
+
 def _launch_geom(D, planes, consts, num_slices: int) -> torch.Tensor:
     """One H4 launch: D [NV, K, H, W], consts [NV, 1, 33] on a CUDA card ->
     costs [NV, C, H, W]. The caller has checked the shapes."""
@@ -459,9 +468,8 @@ def _launch_geom(D, planes, consts, num_slices: int) -> torch.Tensor:
     C, _, H, W = planes.shape
     if not 1 <= NV <= MAX_GEOM_VIEWS:
         raise ValueError(f"the CUDA geometric kernel takes 1 to {MAX_GEOM_VIEWS} views")
-    # 32-bit offsets: over a chunk of 4 views' D, over planes, over the costs
-    if max(4 * num_slices, 4 * C, NV * C) * H * W >= 2 ** 32:
-        raise ValueError("D, planes or the costs exceed the kernel's 32-bit offsets")
+    if not geom_offsets_fit(num_slices, C, H, W):
+        raise ValueError("one view's D, or the planes, exceed the kernel's 32-bit offsets")
     D, planes, consts = D.contiguous(), planes.contiguous(), consts.contiguous()
     out = torch.empty((NV, C, H, W), dtype=torch.float32, device=D.device)
     lib = _build.load("geom_cost", _GEOM_SIG)

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import functools
 import os
 import shutil
 import time
@@ -34,8 +35,9 @@ import time
 import numpy as np
 import torch
 
-from apdmvs_tpu_torch import geometry, ncc, pipeline, rng, scene
+from apdmvs_tpu_torch import geometry, ncc, pipeline, rng, scene, weak
 from apdmvs_tpu_torch.datasets import synthetic
+from apdmvs_tpu_torch.ops import cols
 from apdmvs_tpu_torch.params import PassConfig, PixelState, RunState, build_schedule
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -48,6 +50,11 @@ FLAGSHIP_CFG = PassConfig(state=RunState.REFINE_ITER, geom_consistency=True, use
 FLAGSHIP_RTH = 0.00875
 
 
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
 def flagship_state(images, depths, normals, cams, num_slices: int = 160):
     """Volumes (E, C36, C9 and the ground truth's depth volumes), prior
     (ground truth, WEAK box rows H/2 +- H/8 and cols W/2 +- W/8) and
@@ -58,10 +65,10 @@ def flagship_state(images, depths, normals, cams, num_slices: int = 160):
     t0 = time.perf_counter()
     vs = ncc.build_image_volume_set(torch.as_tensor(images, device=dev), cams, 1.2, 9.6,
                                     num_slices=num_slices, weak_cost_volumes=True)
-    torch.cuda.synchronize()
+    _sync(dev)
     t1 = time.perf_counter()
     vs = ncc.add_depth_volumes(vs, torch.as_tensor(depths, device=dev), cams, 1.2, 9.6)
-    torch.cuda.synchronize()
+    _sync(dev)
     t2 = time.perf_counter()
     ps = torch.full((H_, W_), int(PixelState.STRONG), dtype=torch.uint8, device=dev)
     ps[H_ // 2 - H_ // 8:H_ // 2 + H_ // 8, W_ // 2 - W_ // 8:W_ // 2 + W_ // 8] = int(
@@ -83,6 +90,69 @@ def flagship_pass(cams, vs, prior, cap, seed: int) -> pipeline.PassOutputs:
     return pipeline.patchmatch_pass(cams, sv, prior, rng.TorchDraws(seed, H_, W_, cams.device),
                                     FLAGSHIP_CFG, vs, weak_capacity=cap,
                                     ransac_threshold=FLAGSHIP_RTH)
+
+
+def weak_lookups(cams, vsf, prior, cap, num_slices: int):
+    """The flagship pass's worklist [cap, 2], anchors [cap, 8, 2], resident
+    columns (one ``build_weak_cols``) and lookup slices of the weak sweep's
+    candidates: k_c [10, cap] at the weak pixels and k_a [10, 8 cap] at the
+    anchors, from the prior's planes with 2 % depth noise (B=10: 8 anchor
+    planes, current, fit; B=5 the first five), plane 9 zero (k = 0/0, a
+    zero fit plane), and lanes of k NaN, +-inf, < 0, > K-1 and K-1."""
+    dev = cams.K.device
+    V, H, W = prior.selected.shape
+    ctx = ncc.make_context(cams, torch.arange(V, device=dev) > 0, H, W, vsf)
+    weak_xy = weak.compact_weak_pixels(prior.pixel_state, cap)
+    anchors, _ = weak.generate_anchors(ctx, prior.depth, prior.pixel_state, weak_xy,
+                                       rng.TorchDraws(0, H, W, dev), FLAGSHIP_CFG,
+                                       FLAGSHIP_RTH)
+    a = anchors.coords[:, 1:]
+    wcols = weak.build_weak_cols(ctx, weak_xy, anchors)
+    u_min, du = vsf.u_grid
+    K0 = cams.K[0]
+    wx, wy = weak_xy[:, 0].float(), weak_xy[:, 1].float()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    yc, xc = weak_xy[:, 1].clamp(min=0), weak_xy[:, 0].clamp(min=0)
+    n = geometry.normal_world_to_cam(cams.R[0], prior.normal_world)[yc, xc]  # [N, 3]
+    scale = 1 + 0.02 * torch.randn((10, cap), generator=gen, device=dev)
+    wpl = geometry.dist_to_origin(K0, wx, wy, prior.depth[yc, xc] * scale, n[None])
+    planes = torch.cat([n[None].expand(10, -1, -1), wpl[..., None]], -1)
+    planes[9] = 0.0  # a zero fit plane: k = 0/0
+    dirs_c = geometry.pixel_dirs(K0, wx, wy)
+    adirs = geometry.pixel_dirs(K0, a[..., 0].float(), a[..., 1].float())
+    k_c = (weak._inv_depth(planes, dirs_c) - u_min) / du  # [10, N]
+    k_a = ((weak._inv_depth(planes, adirs) - u_min) / du).reshape(10, -1)  # [10, 8N]
+    for kk in (k_c, k_a):
+        kk[0, :4] = torch.tensor([float("nan"), float("inf"), -float("inf"), -5.0])
+        kk[1, :2] = torch.tensor([num_slices + 10.0, num_slices - 1.0])
+    return weak_xy, a, wcols, k_c, k_a
+
+
+def flagship_h6_calls(cams, vs, prior, cap, seed: int):
+    """One flagship pass with H6 watched: the inputs of the first
+    ``contract_lookup`` call of each kind, ``"{table}_{mode}_B{B}"`` ->
+    (columns, k, nearest), the table named by the columns' length (c36
+    and d at the ``cap`` weak pixels, c9 at their 8 ``cap`` anchors).
+    These are the lookups a real pass makes, wider than those of
+    :func:`weak_lookups`."""
+    kernel, seen = cols.contract_lookup, {}
+
+    # wraps carries ``launches`` over: the wrapper counts its launches
+    # through the module's name, which is the watcher here
+    @functools.wraps(kernel)
+    def watched(cols_t, k, nearest=False):
+        table = "d" if nearest else {cap: "c36", 8 * cap: "c9"}[cols_t.shape[2]]
+        kind = f"{table}_{'nearest' if nearest else 'tent'}_B{k.shape[0]}"
+        seen.setdefault(kind, (cols_t, k.clone(), nearest))
+        return kernel(cols_t, k, nearest)
+
+    cols.contract_lookup = watched
+    try:
+        flagship_pass(cams, vs, prior, cap, seed)
+    finally:
+        cols.contract_lookup = kernel
+    return seen
 
 
 def _device_kernels(prof):

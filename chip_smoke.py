@@ -28,7 +28,10 @@ and no ``ok`` line is printed:
    computes the same function, that call (``F.grid_sample`` for H1): H1,
    H2, H3 and H4 in device time (20 calls replayed from a CUDA graph,
    warmed up) and per call (CUDA events); H4 also as four one-view calls
-   and a ``torch.stack``, as the main path evaluated it before.
+   and a ``torch.stack``, as the main path evaluated it before. Then H4
+   over four views of K=160 at 3200x2400, C=8 (19.7 GB of depth volume
+   from a seeded generator, more than 2^32 elements), bit-exact view by
+   view.
 3. main path: renders the 5-view 640x480 ring scene, writes it as a
    dataset, and runs ``scene.run_scene(device="cuda")``: one round of 4
    passes x 5 views (FIRST_INIT + 3 geometric REFINE_ITER) and ETH fusion.
@@ -38,11 +41,23 @@ and no ``ok`` line is printed:
    H4 wrappers must not. Checks: median
    relative depth error on interior pixels < 0.01 against ground truth,
    > 1000 fused points, median point-to-plane distance < 0.05.
-4. cols: holds H5 gather_cols (bit-exact) and H6 contract_lookup (tent
-   within 1.2e-7 with NaN where the plain version has NaN, nearest
-   bit-exact; B=10 and 5, lanes with k NaN, +-inf, < 0, > K-1) against
-   their plain versions at the flagship shapes below, and times kernel,
-   plain version and library yardstick.
+4. cols: holds H5 gather_cols (bit-exact) against its plain version at
+   the flagship shapes below and times kernel, plain version and library
+   yardstick in device time; H5's lines give the distinct (slice, 32-byte
+   sector) pairs its reads touch beside the bytes bound, and the distinct
+   128-byte lines a warp load touches. H6 contract_lookup (tent within
+   1.2e-7 with NaN where the plain version has NaN, nearest bit-exact) is
+   held against its plain version and timed on the lookups of a real
+   flagship pass (the first call of each kind, captured by
+   ``trace_pass.flagship_h6_calls``), with the quartiles of the slice
+   range the lookups of 32 and of 256 neighbouring positions weigh and the
+   bytes staging those ranges would move; the costliest call is its row in
+   the kernels line. Then edge cases, each against the plain version: H5
+   at M = 1, 12, 14, 1001, every coordinate -1, and 196608 slots over 100
+   positions; H6 on the weak sweep's synthetic candidates (B=10 and 5,
+   lanes with k NaN, +-inf, < 0, > K-1), with k in a 4-slice band, over
+   all of K and in the last slices, R = 1001, B = 1 and 17, columns 2
+   bytes past 16-byte alignment, and K * R >= 2^32 against gathers.
 5. ops: the entry points that no default path calls, at full width, run
    once with the launch counters zeroed just before and read just after
    (their launches in the kernels line are these): H8 volume_sample on the
@@ -577,8 +592,75 @@ def phase_kernels(dev, inputs):
     log(f"kernel H4 geom_volume_cost_view C=8 one view: device {ms1:.4f} ms (bound {b1:.4f} by "
         f"{b1_by})")
     del Ds
+    h4_large(dev)
     torch.cuda.synchronize()
     return rows
+
+
+def h4_large(dev, NV=4, C=8, H4=2400, W4=3200):
+    """H4 over NV views of K=160 at 3200x2400, C=8: 4 x 4.9 GB of depth
+    volume, more than 2^32 elements over the views, held bit for bit
+    against the plain version view by view. The kernel addresses each view
+    from a 64-bit base; a guard over the whole of D refused this."""
+    import numpy as np
+    import torch
+
+    from apdmvs_tpu_torch import geometry
+    from apdmvs_tpu_torch.datasets import synthetic
+    from apdmvs_tpu_torch.ops import ncc_volume as nv, volume as vol
+
+    if not nv.geom_offsets_fit(K, C, H4, W4):
+        raise AssertionError("the large H4 case does not fit the kernel's offsets")
+    old_rule = max(4 * K, 4 * C, NV * C) * H4 * W4
+    cams_s, _ = synthetic.make_ring_scene(num_views=NV + 1, width=W4, height=H4)
+    cams = geometry.make_cameras(
+        np.stack([c.K for c in cams_s]), np.stack([c.R for c in cams_s]),
+        np.stack([c.t for c in cams_s]), np.full(NV + 1, 1.2), np.full(NV + 1, 9.6), device=dev)
+    wc = geometry.warp_constants(cams)
+    u_min, du = vol.inv_depth_grid(1.2, 9.6, K)
+    KR = geometry.mat3_mat3(cams.K[0], cams.R[0])
+    gconsts = torch.stack([nv.pack_geom_consts(
+        cams.K[0], wc.M[v], wc.b[v],
+        geometry.mat3_mat3(geometry.mat3_mat3(KR, cams.R[v].transpose(-1, -2)),
+                           geometry.k_inverse_zero_skew(cams.K[v])),
+        geometry.mat3_vec(KR, cams.c[v] - cams.c[0]), u_min, du, W4, H4)
+        for v in range(1, NV + 1)])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    # depths 0 .. 8.5, about 6 % of them 0 (no depth: cost 3)
+    D = torch.rand((NV, K, H4, W4), generator=gen, device=dev)
+    D.mul_(9.0).sub_(0.5).clamp_(min=0.0)
+    x, y = geometry.pixel_grid(H4, W4, dev)
+    n = torch.tensor([0.0, 0.0, -1.0], device=dev) + 0.2 * torch.randn(
+        (C, H4, W4, 3), generator=gen, device=dev)
+    n = n / torch.linalg.vector_norm(n, dim=-1, keepdim=True)
+    depth = 1.2 + 8.4 * torch.rand((C, H4, W4), generator=gen, device=dev)
+    w = geometry.dist_to_origin(cams.K[0], x, y, depth, n)
+    planes = torch.cat([n, w[..., None]], -1).permute(0, 3, 1, 2).contiguous()
+    del n, depth, w
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = nv.geom_cost_views(D, planes, gconsts, K)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    nan_lanes, exact = 0, True
+    for v in range(NV):
+        ref = nv.geom_volume_cost_view_ref(D[v], planes, gconsts[v], K)
+        nan = torch.isnan(ref)
+        nan_lanes += int(nan.sum())
+        exact &= (torch.equal(torch.isnan(out[v]), nan)
+                  and torch.equal(out[v][~nan].view(torch.int32), ref[~nan].view(torch.int32)))
+        del ref, nan
+    log(f"kernel H4 geom_cost_views {NV} views K={K} C={C} at {W4}x{H4}: D "
+        f"{D.numel() * 4 / 1e9:.1f} GB ({D.numel()} elements, 2^32 = {2 ** 32}); bit-exact "
+        f"{exact}, NaN in {nan_lanes} lanes as the plain version (tol: bit-exact); one launch "
+        f"{ms:.2f} ms with its first-call work; max(4K, 4C, NV*C)*H*W = {old_rule} >= 2^32 "
+        f"{old_rule >= 2 ** 32} (the old whole-D guard refused it), max(K, 4C)*H*W = "
+        f"{max(K, 4 * C) * H4 * W4}")
+    if not exact:
+        raise AssertionError("H4 disagrees with its plain version at 3200x2400")
+    del D, planes, out
+    torch.cuda.empty_cache()
 
 
 # the launch counters of the one-round path (the weak machinery's H5, H6
@@ -691,23 +773,149 @@ def flagship_state(dev, inputs):
     return vs, prior, cap
 
 
-def phase_cols(dev, inputs, flag):
-    """H5 gather_cols and H6 contract_lookup against their plain versions at
-    the flagship pass's shapes, with its anchors."""
+def h5_read_figures(vol, pix):
+    """The read side of H5 for slots at pixel offsets ``pix`` (int64, into
+    each plane of ``vol``): distinct positions; distinct (slice, 32-byte
+    sector) pairs the reads touch; and the mean number of distinct 128-byte
+    lines one warp load touches: with a thread an element (lane l, slot
+    l), in the kernel's layout (lane l owns slots G l .. G l + G-1, load g
+    reads slot g of every lane, G = 16 bytes over the element size), and
+    in that layout with each lane's slots sorted by position (what the
+    kernel loads for bf16); and the (slice, sector) pairs summed over the
+    kernel's blocks of 256 G slots (what L1 misses bring from L2 where no
+    two blocks on one SM share a line)."""
     import torch
 
-    from apdmvs_tpu_torch import geometry, ncc, rng, trace_pass, weak
+    Vs, Kv, PH, PW = vol.shape
+    P, elem, plane = Vs * Kv, vol.element_size(), PH * PW
+    positions = int(torch.unique(pix).numel())
+    if plane * elem % 32 == 0:  # every plane starts on a sector: the same sectors each
+        sectors = P * int(torch.unique(pix * elem // 32).numel())
+    else:
+        sectors = sum(int(torch.unique((p * plane + pix) * elem // 32).numel()) for p in range(P))
+    G = 16 // elem
+    tiles = pix.split(256 * G)
+    block_sectors = P * sum(int(torch.unique(t * elem // 32).numel()) for t in tiles)
+    pad = (-pix.numel()) % (32 * G)
+    pix = torch.cat([pix, pix[-1:].expand(pad)])
+    lines = pix * elem // 128
+    by_lane = torch.sort(pix.reshape(-1, G), dim=1).values.reshape(-1) * elem // 128
+
+    def mean_distinct(rows):
+        srt = torch.sort(rows, dim=1).values
+        return float((1 + (srt[:, 1:] != srt[:, :-1]).sum(1)).float().mean())
+
+    def lanes(x):  # one row a warp load of the kernel's layout
+        return x.reshape(-1, 32, G).transpose(1, 2).reshape(-1, 32)
+
+    return (positions, sectors, mean_distinct(lines.reshape(-1, 32)),
+            mean_distinct(lanes(lines)), mean_distinct(lanes(by_lane)), block_sectors)
+
+
+def h6_ranges(k, num_slices: int, nearest: bool, width: int):
+    """For each group of ``width`` neighbouring positions: the number of
+    slices the lookups of all its candidates weigh, lowest to highest (NaN
+    k excluded; <= 0 when every k is NaN): what staging the group's slice
+    range in shared memory would read (a warp's 32 positions, a block's
+    256)."""
+    import torch
+
+    R = k.shape[1]
+    kc = torch.clamp(k, 0.0, num_slices - 1.0)
+    i0 = torch.round(kc) if nearest else torch.floor(kc)
+    top = i0 if nearest else torch.clamp(i0 + 1, max=num_slices - 1)
+    nan = torch.isnan(kc)
+    lo = torch.where(nan, float(num_slices), i0).amin(dim=0)
+    hi = torch.where(nan, -1.0, top).amax(dim=0)
+    pad = (-R) % width
+    lo = torch.nn.functional.pad(lo, (0, pad), value=float(num_slices))
+    hi = torch.nn.functional.pad(hi, (0, pad), value=-1.0)
+    return (hi.reshape(-1, width).amax(1) - lo.reshape(-1, width).amin(1) + 1).long()
+
+
+def quartiles(x):
+    import torch
+
+    return torch.quantile(x.float(), torch.tensor([0.25, 0.5, 0.75], device=x.device)).tolist()
+
+
+def h6_large(dev, gen, R=2 ** 32 // K + 64):
+    """H6 at K * R >= 2^32 (its 64-bit offsets): one view of 8.6 GB of bf16
+    columns (values 0.5 .. 128 from the generator), B=2, against the lookups
+    computed by gathers (the plain version's one-hot sums would need
+    ~50 GB here)."""
+    import torch
+
+    from apdmvs_tpu_torch.ops import cols
+
+    big = torch.randint(0x3F00, 0x4300, (1, K, R), dtype=torch.int16, generator=gen,
+                        device=dev).view(torch.bfloat16)  # 0.5 .. 128
+    big_k = (K - 1.0) * torch.rand((2, R), generator=gen, device=dev)
+    big_k[0, :3] = torch.tensor([float("nan"), float("inf"), -1.0])
+    for nearest in (False, True):
+        out = cols.contract_lookup(big, big_k, nearest=nearest)
+        ok, err, tol = check_h6(out, h6_gather_ref(big, big_k, nearest), nearest)
+        log(f"kernel H6 edge case K * R = {K * R} ({'>=' if K * R >= 2 ** 32 else '<'} 2^32), "
+            f"{'nearest' if nearest else 'tent'}: max abs {err:.3e} ({tol}) against gathers -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("H6 disagrees with the gathers at K * R >= 2^32")
+    del big, big_k, out
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def h6_gather_ref(cols_t, k, nearest: bool):
+    """H6's function by gathers of the one or two weighing slices, in the
+    mirrors' arithmetic (for columns too large for the one-hot plain
+    version)."""
+    import torch
+
+    Vs, Kt = cols_t.shape[:2]
+    kc = torch.clamp(k, 0.0, Kt - 1.0)
+    nan = torch.isnan(kc)
+    kz = torch.where(nan, 0.0, kc)
+
+    def at(i):
+        return torch.gather(cols_t, 1, i[None].expand(Vs, -1, -1).contiguous()).float()
+
+    if nearest:
+        return torch.where(nan[:, None], 0.0, at(torch.round(kz).long()).transpose(0, 1))
+    i0 = torch.floor(kz)
+    w0 = torch.clamp(1.0 - torch.abs(kz - i0), min=0.0)
+    two = i0 + 1 < Kt
+    w1 = torch.where(two, torch.clamp(1.0 - torch.abs(kz - (i0 + 1)), min=0.0), 0.0)
+    c0 = at(i0.long()).transpose(0, 1)
+    c1 = at(torch.clamp(i0 + 1, max=Kt - 1).long()).transpose(0, 1)
+    s = c0 * w0[:, None]
+    s = torch.where(two[:, None], s + c1 * w1[:, None], s)
+    return torch.where(nan[:, None], float("nan"), s)
+
+
+def check_h6(out, ref, nearest):
+    """H6 against its plain version: nearest bit-exact; tent within 1.2e-7
+    with NaN where the plain version has NaN. Returns (ok, max abs, tol)."""
+    import torch
+
+    if nearest:
+        return torch.equal(out, ref), float((out - ref).abs().max()), "bit-exact"
+    same_nan = torch.equal(torch.isnan(out), torch.isnan(ref))
+    fin = ~torch.isnan(ref)
+    err = float((out[fin] - ref[fin]).abs().max()) if bool(fin.any()) else 0.0
+    return same_nan and err <= 1.2e-7, err, "<= 1.2e-7, NaN where the plain version has NaN"
+
+
+def phase_cols(dev, inputs, flag):
+    """H5 gather_cols and H6 contract_lookup against their plain versions at
+    the flagship pass's shapes, with its anchors, and on edge cases."""
+    import torch
+
+    from apdmvs_tpu_torch import trace_pass
     from apdmvs_tpu_torch.ops import cols, ncc_volume as nv
 
     cams = inputs[-1]
     vs, prior, cap = flag
-    sv = torch.arange(V, device=dev) > 0
-    ctx = ncc.make_context(cams, sv, H, W, vs)
-    weak_xy = weak.compact_weak_pixels(prior.pixel_state, cap)
-    anchors, _ = weak.generate_anchors(ctx, prior.depth, prior.pixel_state, weak_xy,
-                                       rng.TorchDraws(0, H, W, dev), trace_pass.FLAGSHIP_CFG,
-                                       trace_pass.FLAGSHIP_RTH)
-    a = anchors.coords[:, 1:]
+    weak_xy, a, wcols, k_c, k_a = trace_pass.weak_lookups(cams, vs, prior, cap, K)
     log(f"cols: worklist {cap} ({int((weak_xy[:, 0] >= 0).sum())} weak pixels), "
         f"{int((a[..., 0] >= 0).sum())} anchors found")
     rows = []
@@ -718,13 +926,16 @@ def phase_cols(dev, inputs, flag):
         "c9": (vs.C9, a[..., 0].reshape(-1), a[..., 1].reshape(-1), nv.PAD_Y, nv.PAD_X),
         "d": (vs.D, weak_xy[:, 0], weak_xy[:, 1], 0, 0),
     }
+
+    def h5_exact(args):
+        out, ref = cols.gather_cols(*args), cols.gather_cols_ref(*args)
+        ibits = torch.int16 if args[0].dtype == torch.bfloat16 else torch.int32
+        return out, torch.equal(out.view(ibits), ref.view(ibits))
+
     h5 = {}
     for name, args in cases.items():
         vol, xs, ys, py, px = args
-        out = cols.gather_cols(*args)
-        ref = cols.gather_cols_ref(*args)
-        ibits = torch.int16 if vol.dtype == torch.bfloat16 else torch.int32
-        exact = torch.equal(out.view(ibits), ref.view(ibits))
+        out, exact = h5_exact(args)
         log(f"kernel H5 gather_cols {name}: {tuple(out.shape)} {vol.dtype}, bit-exact {exact} "
             "(tol: bit-exact)")
         if not exact:
@@ -732,103 +943,149 @@ def phase_cols(dev, inputs, flag):
         Vs, Kv, PH, PW = vol.shape
         yi = torch.clamp(ys + py, 0, PH - 1)
         xi = torch.clamp(xs + px, 0, PW - 1)
-        ms = time_ms(lambda: cols.gather_cols(*args), 20)
+        ms = graph_ms(lambda: cols.gather_cols(*args))
+        call = time_ms(lambda: cols.gather_cols(*args), 20)
         plain = time_ms(lambda: cols.gather_cols_ref(*args), 3, 1)
-        lib = time_ms(lambda: vol[:, :, yi, xi], 20)
-        positions = int(torch.unique(yi * PW + xi).numel())
-        M = xs.shape[0]
-        b_ms, b_by = bound((positions + M) * Vs * Kv * vol.element_size() + 8 * M, 0.0)
-        log(f"kernel H5 gather_cols {name}: {ms:.3f} ms (plain {plain:.3f}, vol[:, :, ys, xs] "
-            f"{lib:.3f}, bound {b_ms:.4f} by {b_by}; M {M}, distinct positions {positions})")
-        log(f"kernel H5 gather_cols {name}: device {graph_ms(lambda: cols.gather_cols(*args)):.4f}"
-            f" ms, vol[:, :, ys, xs] device {graph_ms(lambda: vol[:, :, yi, xi]):.4f} ms")
+        lib = graph_ms(lambda: vol[:, :, yi, xi])
+        M, elem = xs.shape[0], vol.element_size()
+        positions, sectors, lines_e, lines_k, lines_s, blk = h5_read_figures(vol, yi * PW + xi)
+        b_ms, b_by = bound((positions + M) * Vs * Kv * elem + 8 * M, 0.0)
+        b_sec, _ = bound(sectors * 32 + M * Vs * Kv * elem + 8 * M, 0.0)
+        log(f"kernel H5 gather_cols {name}: device {ms:.4f} ms, {call:.4f} ms a call (plain "
+            f"{plain:.3f}, vol[:, :, ys, xs] device {lib:.4f}; bound {b_ms:.4f} by {b_by}, "
+            f"{b_ms / ms:.2f} of it; M {M}, distinct positions {positions})")
+        log(f"kernel H5 gather_cols {name}: reads touch {sectors} distinct (slice, 32-byte "
+            f"sector) pairs, {sectors * 32 / 1e6:.1f} MB against the bound's "
+            f"{positions * Vs * Kv * elem / 1e6:.1f} MB of elements (bound with whole sectors "
+            f"{b_sec:.4f} ms); a warp load touches {lines_e:.2f} distinct 128-byte lines with a "
+            f"thread an element, {lines_k:.2f} with a thread {16 // elem} slots, {lines_s:.2f} "
+            f"with those sorted by position; blocks of {256 * 16 // elem} slots touch {blk} "
+            f"(slice, sector) pairs, {blk * 32 / 1e6:.1f} MB from L2")
         h5[name] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
     rows.append(dict(name="gather_cols", route="cuda", source="apdmvs_tpu_torch/csrc/gather_cols.cu",
                      replaces="apdmvs_tpu/ops/cols.py:50", max_abs_err=0.0, **h5["c9"]))
-
-    # ---- H6 contract_lookup: the weak sweep's candidates (B=10: 8 anchor
-    # planes, current, fit; B=5: refinement combos), tent on C36/C9 columns,
-    # nearest on D columns, plus lanes with k NaN, +-inf, < 0 and > K-1
-    wcols = weak.build_weak_cols(ctx, weak_xy, anchors)
-    u_min, du = vs.u_grid
-    K0 = cams.K[0]
-    wx, wy = weak_xy[:, 0].float(), weak_xy[:, 1].float()
+    # edge cases, each bit-exact: one slot; slot counts that leave a thread
+    # ragged or rule out 16-byte stores; every coordinate -1; the anchor
+    # pattern at its worst, 196608 slots over 100 positions
     gen = torch.Generator(device=dev)
-    gen.manual_seed(1)
-    yc, xc = weak_xy[:, 1].clamp(min=0), weak_xy[:, 0].clamp(min=0)
-    n = geometry.normal_world_to_cam(cams.R[0], prior.normal_world)[yc, xc]  # [N, 3]
-    scale = 1 + 0.02 * torch.randn((10, cap), generator=gen, device=dev)
-    wpl = geometry.dist_to_origin(K0, wx, wy, prior.depth[yc, xc] * scale, n[None])
-    planes = torch.cat([n[None].expand(10, -1, -1), wpl[..., None]], -1)
-    planes[9] = 0.0  # a zero fit plane: k = 0/0
-    dirs_c = geometry.pixel_dirs(K0, wx, wy)
-    adirs = geometry.pixel_dirs(K0, a[..., 0].float(), a[..., 1].float())
-    k_c = (weak._inv_depth(planes, dirs_c) - u_min) / du  # [10, N]
-    k_a = ((weak._inv_depth(planes, adirs) - u_min) / du).reshape(10, -1)  # [10, 8N]
-    for kk in (k_c, k_a):
-        kk[0, :4] = torch.tensor([float("nan"), float("inf"), -float("inf"), -5.0])
-        kk[1, :2] = torch.tensor([K + 10.0, K - 1.0])
+    gen.manual_seed(2)
+    wx, wy = weak_xy[:, 0], weak_xy[:, 1]
+    rep = torch.randint(0, 100, (196608,), generator=gen, device=dev)
+    neg = torch.full((4099,), -1, dtype=torch.int64, device=dev)
+    edge = {"C36, M = 1": (vs.C36, wx[:1], wy[:1], nv.PAD_Y, nv.PAD_X),
+            "C36, M = 1001": (vs.C36, wx[:1001], wy[:1001], nv.PAD_Y, nv.PAD_X),
+            "D, M = 1001": (vs.D, wx[:1001], wy[:1001], 0, 0),
+            "C36, M = 12": (vs.C36, wx[:12], wy[:12], nv.PAD_Y, nv.PAD_X),
+            "D, M = 14": (vs.D, wx[:14], wy[:14], 0, 0),
+            "C9, every coordinate -1": (vs.C9, neg, neg, nv.PAD_Y, nv.PAD_X),
+            "D, every coordinate -1": (vs.D, neg, neg, 0, 0),
+            "C9, 196608 slots at 100 positions": (vs.C9, wx[rep], wy[rep], nv.PAD_Y, nv.PAD_X)}
+    for name, args in edge.items():
+        _, exact = h5_exact(args)
+        log(f"kernel H5 edge case {name}: bit-exact {exact} (tol: bit-exact)")
+        if not exact:
+            raise AssertionError(f"H5 disagrees with its plain version ({name})")
+
+    # ---- H6 contract_lookup on the lookups of a real flagship pass: the
+    # first call of each kind (table, B) with its inputs, against the plain
+    # version, timed; its costliest call is the kernels line's row
     h6, err_h6 = {}, 0.0
-    for name, table, kk, nearest in (("c36 tent", wcols.c36, k_c, False),
-                                     ("c9 tent", wcols.c9, k_a, False),
-                                     ("d nearest", wcols.d, k_c, True)):
-        for B in (10, 5):
-            kb = kk[:B].contiguous()
-            out = cols.contract_lookup(table, kb, nearest=nearest)
-            ref = cols.contract_lookup_ref(table, kb, nearest=nearest)
-            if nearest:
-                ok = torch.equal(out, ref)
-                err = float((out - ref).abs().max())
-                tol = "bit-exact"
-            else:
-                same_nan = torch.equal(torch.isnan(out), torch.isnan(ref))
-                fin = ~torch.isnan(ref)
-                err = float((out[fin] - ref[fin]).abs().max())
-                ok = same_nan and err <= 1.2e-7
-                tol = "<= 1.2e-7, NaN where the plain version has NaN"
-            err_h6 = max(err_h6, err)
-            log(f"kernel H6 contract_lookup {name} B={B}: {tuple(out.shape)}, max abs {err:.3e} "
-                f"({tol}) -> {'ok' if ok else 'FAIL'}; NaN outputs {int(torch.isnan(out).sum())}")
-            if not ok:
-                raise AssertionError(f"H6 disagrees with its plain version ({name}, B={B})")
-            ms = time_ms(lambda: cols.contract_lookup(table, kb, nearest=nearest), 20)
-            plain = time_ms(lambda: cols.contract_lookup_ref(table, kb, nearest=nearest), 2, 1)
-            lib = None
-            if nearest:  # one torch.gather along K computes the nearest lookup
-                Kt = table.shape[1]
-                idx = torch.round(torch.nan_to_num(kb, nan=0.0).clamp(0, Kt - 1)).long()
-                idx = idx[None].expand(table.shape[0], -1, -1)
-                lib = time_ms(lambda: torch.gather(table, 1, idx), 20)
-            # bytes: the column elements these k touch (1 or 2 slices a lane),
-            # k in, out written
-            Vs, Kt, R = table.shape
-            kc = torch.nan_to_num(kb, nan=0.0).clamp(0, Kt - 1)
-            seen = torch.zeros((Kt, R), dtype=torch.bool, device=dev)
-            lanes = torch.arange(R, device=dev)[None].expand(B, -1)
-            if nearest:
-                seen[torch.round(kc).long(), lanes] = True
-            else:
-                k0 = torch.floor(kc).long()
-                seen[k0, lanes] = True
-                seen[torch.clamp(k0 + 1, max=Kt - 1), lanes] = True
-            touched = int(seen.sum()) * Vs
-            b_ms, b_by = bound(touched * table.element_size() + B * R * 4 + B * Vs * R * 4,
-                               B * Vs * R * 4.0)
-            lib_s = "none" if lib is None else f"{lib:.3f}"
-            log(f"kernel H6 contract_lookup {name} B={B}: {ms:.3f} ms (plain {plain:.3f}, "
-                f"torch.gather {lib_s}, bound {b_ms:.4f} by {b_by}; column elements touched "
-                f"{touched})")
-            # the same in device time (a call's host work can outlast kernels this short)
-            dev_ms = graph_ms(lambda: cols.contract_lookup(table, kb, nearest=nearest))
-            dev_lib = graph_ms(lambda: torch.gather(table, 1, idx)) if nearest else None
-            log(f"kernel H6 contract_lookup {name} B={B}: device {dev_ms:.4f} ms"
-                + ("" if dev_lib is None else f", torch.gather device {dev_lib:.4f} ms"))
-            h6[(name, B)] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                                 library_ms=lib)
+    for kind, (table, kb, nearest) in sorted(
+            trace_pass.flagship_h6_calls(cams, vs, prior, cap, 7).items()):
+        out = cols.contract_lookup(table, kb, nearest=nearest)
+        ok, err, tol = check_h6(out, cols.contract_lookup_ref(table, kb, nearest=nearest), nearest)
+        err_h6 = max(err_h6, err)
+        log(f"kernel H6 contract_lookup, a pass's {kind}: {tuple(out.shape)}, max abs {err:.3e} "
+            f"({tol}) -> {'ok' if ok else 'FAIL'}; NaN outputs {int(torch.isnan(out).sum())}")
+        if not ok:
+            raise AssertionError(f"H6 disagrees with its plain version (a pass's {kind})")
+        ms = graph_ms(lambda: cols.contract_lookup(table, kb, nearest=nearest))
+        call = time_ms(lambda: cols.contract_lookup(table, kb, nearest=nearest), 20)
+        plain = time_ms(lambda: cols.contract_lookup_ref(table, kb, nearest=nearest), 2, 1)
+        lib = None
+        Vs, Kt, R = table.shape
+        B = kb.shape[0]
+        if nearest:  # one torch.gather along K computes the nearest lookup
+            idx = torch.round(torch.nan_to_num(kb, nan=0.0).clamp(0, Kt - 1)).long()
+            idx = idx[None].expand(Vs, -1, -1)
+            lib = graph_ms(lambda: torch.gather(table, 1, idx))
+        # bytes: the column elements these k touch (1 or 2 slices a lane),
+        # k in, out written
+        kc = torch.nan_to_num(kb, nan=0.0).clamp(0, Kt - 1)
+        seen = torch.zeros((Kt, R), dtype=torch.bool, device=dev)
+        lanes = torch.arange(R, device=dev)[None].expand(B, -1)
+        if nearest:
+            seen[torch.round(kc).long(), lanes] = True
+        else:
+            k0 = torch.floor(kc).long()
+            seen[k0, lanes] = True
+            seen[torch.clamp(k0 + 1, max=Kt - 1), lanes] = True
+        touched = int(seen.sum()) * Vs
+        b_ms, b_by = bound(touched * table.element_size() + B * R * 4 + B * Vs * R * 4,
+                           B * Vs * R * 4.0)
+        spans = []
+        for width in (32, 256):
+            span = h6_ranges(kb, Kt, nearest, width)
+            q = quartiles(span[span > 0])
+            staged = int(span[span > 0].sum()) * width * Vs * table.element_size()
+            spans.append(f"{width} neighbouring positions weigh {q[0]:.0f} / {q[1]:.0f} / "
+                         f"{q[2]:.0f} slices (quartiles, max {int(span.max())}), "
+                         f"{staged / 1e6:.2f} MB if staged")
+        lib_s = "none" if lib is None else f"{lib:.4f}"
+        log(f"kernel H6 contract_lookup, a pass's {kind}: device {ms:.4f} ms, {call:.4f} ms a "
+            f"call (plain {plain:.3f}, torch.gather device {lib_s}; bound {b_ms:.4f} by {b_by}, "
+            f"{b_ms / ms:.2f} of it; column elements touched {touched}, "
+            f"{touched * table.element_size() / 1e6:.2f} MB); the lookups of "
+            + "; of ".join(spans))
+        h6[kind] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+    # edge cases, each against the plain version: the weak sweep's
+    # candidates at the flagship worklist (B=10: 8 anchor planes, current,
+    # fit; B=5: refinement combos; tent on C36/C9, nearest on D; lanes with
+    # k NaN, +-inf, < 0 and > K-1); k in a 4-slice band and over all of K;
+    # k in the last slices (up to K-1 and past it); R odd; B = 1 and B = 17;
+    # columns 2 bytes past 16-byte alignment
+    R9 = wcols.c9.shape[2]
+    band = 40.0 + 4.0 * torch.rand((17, R9), generator=gen, device=dev)
+    spread = (K - 1.0) * torch.rand((10, R9), generator=gen, device=dev)
+    top = (K - 4.0) + 5.0 * torch.rand((10, R9), generator=gen, device=dev)
+    c9_odd = wcols.c9[:, :, :1001].contiguous()
+    flat = torch.empty(wcols.c9.numel() + 1, dtype=wcols.c9.dtype, device=dev)
+    flat[1:] = wcols.c9.reshape(-1)
+    c9_shifted = flat[1:].view(wcols.c9.shape)
+    d_cols = wcols.d
+    Rd = d_cols.shape[2]
+    edge6 = {f"{name} B={B}": (table, kk[:B].contiguous(), nearest)
+             for name, table, kk, nearest in (("c36 tent", wcols.c36, k_c, False),
+                                              ("c9 tent", wcols.c9, k_a, False),
+                                              ("d nearest", wcols.d, k_c, True))
+             for B in (10, 5)}
+    edge6.update({
+        "c9 tent, k in a 4-slice band": (wcols.c9, band[:10], False),
+        "c9 tent, k over all of K": (wcols.c9, spread, False),
+        "c9 nearest, k over all of K": (wcols.c9, spread, True),
+        "d nearest, k in a 4-slice band": (d_cols, band[:10, :Rd].contiguous(), True),
+        "d nearest, k over all of K": (d_cols, spread[:, :Rd].contiguous(), True),
+        "c9 tent, k in the last slices": (wcols.c9, top, False),
+        "c9 nearest, k in the last slices": (wcols.c9, top, True),
+        "c9 tent, R = 1001": (c9_odd, spread[:, :1001].contiguous(), False),
+        "c9 tent, B = 1": (wcols.c9, band[:1], False),
+        "c9 tent, B = 17": (wcols.c9, band, False),
+        "c9 tent, columns 2 bytes past alignment": (c9_shifted, band[:10], False)})
+    for name, (table, kb, nearest) in edge6.items():
+        out = cols.contract_lookup(table, kb, nearest=nearest)
+        ok, err, tol = check_h6(out, cols.contract_lookup_ref(table, kb, nearest=nearest), nearest)
+        err_h6 = max(err_h6, err)
+        log(f"kernel H6 edge case {name}: max abs {err:.3e} ({tol}) -> {'ok' if ok else 'FAIL'}; "
+            f"NaN outputs {int(torch.isnan(out).sum())}")
+        if not ok:
+            raise AssertionError(f"H6 disagrees with its plain version ({name})")
+    del flat, c9_shifted, c9_odd
+    h6_large(dev, gen)
+    worst = max(h6, key=lambda kind: h6[kind]["ms"])
+    log(f"kernel H6 contract_lookup: the kernels line holds a pass's {worst}")
     rows.append(dict(name="contract_lookup", route="cuda",
                      source="apdmvs_tpu_torch/csrc/contract_lookup.cu",
-                     replaces="apdmvs_tpu/ops/cols.py:335", max_abs_err=err_h6,
-                     **h6[("c9 tent", 10)]))
+                     replaces="apdmvs_tpu/ops/cols.py:335", max_abs_err=err_h6, **h6[worst]))
     torch.cuda.synchronize()
     return rows, (weak_xy, a)
 

@@ -4,13 +4,16 @@ CPU.
 
 - H5 against the reference's pack_volume_rows -> flat_index ->
   gather_rows_ref composition (what build_weak_cols runs on the CPU):
-  bit-exact, bf16 and f32, with -1 coordinates.
+  bit-exact, bf16 and f32, with -1 coordinates, and at the slot counts
+  and patterns the kernel splits unevenly (one slot, 14, 1001, every
+  coordinate -1, many slots over few positions).
 - H6 against the reference's tent_lookup / nearest_lookup on the
   transposed layout (what contract_lookup runs on the CPU): tent within
   1.2e-7 (the reference package's own kernel tolerance,
   tests/test_cols.py:74; its CPU build fuses the two products into a
   multiply-add), nearest bit-exact, with NaN, +-inf and out-of-range k.
-  A NaN k gives NaN (tent) and 0 (nearest) on both sides.
+  A NaN k gives NaN (tent) and 0 (nearest) on both sides. Also at R odd
+  or 14, B = 1, and k in a narrow band or over all of K.
 - build_cost_volume against the reference: within 1 bf16 ulp on >= 99.9%
   of the entries (the reference's compiled sums may fuse multiply-adds),
   with and without a constant window, and the zero-sum border exactly
@@ -61,6 +64,45 @@ def test_gather_cols_matches_reference_composition(dtype, pad):
     assert got.dtype == want.dtype and got.shape == (Vs, K, M)
     assert torch.equal(got.view(torch.int16) if dtype == "bfloat16" else got,
                        want.view(torch.int16) if dtype == "bfloat16" else want)
+
+
+def _h5_coords(case, rng, PH, PW, pad_y, pad_x):
+    """Worklist coordinates of the shapes H5's kernel splits unevenly: one
+    slot, slot counts that are odd or leave a thread of 8 (4) slots part
+    full, every coordinate -1, and the anchor pattern (many slots over few
+    positions)."""
+    H, W = PH - 2 * pad_y, PW - 2 * pad_x
+    M = {"M=1": 1, "M=14": 14, "M=1001": 1001, "all -1": 515, "repeated": 4096}[case]
+    xs = rng.randint(-1, W, M).astype(np.int32)
+    ys = rng.randint(-1, H, M).astype(np.int32)
+    if case == "all -1":
+        xs[:], ys[:] = -1, -1
+    if case == "repeated":
+        pick = rng.randint(0, 20, M)
+        xs, ys = xs[:20][pick], ys[:20][pick]
+        xs[::7], ys[::7] = -1, -1  # missing anchors among them
+    return xs, ys
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", ["M=1", "M=14", "M=1001", "all -1", "repeated"])
+def test_gather_cols_edge_shapes_match_reference_composition(dtype, case):
+    rng = np.random.RandomState(3)
+    Vs, K, PH, PW, pad_y, pad_x = 2, 10, 24, 40, 4, 8
+    vol = jnp.asarray(rng.rand(Vs, K, PH, PW).astype(np.float32), dtype=dtype)
+    xs, ys = _h5_coords(case, rng, PH, PW, pad_y, pad_x)
+    M = xs.shape[0]
+    idx = jcols.flat_index(jnp.asarray(xs), jnp.asarray(ys), pad_y, pad_x, PH, PW)
+    rows = jcols.gather_rows_ref(jcols.pack_volume_rows(vol), idx)
+    want = convert.tensor(jnp.transpose(rows.reshape(M, Vs, K), (1, 2, 0)))
+    got = tcols.gather_cols(convert.tensor(vol), torch.from_numpy(xs), torch.from_numpy(ys),
+                            pad_y, pad_x)
+    bits = torch.int16 if dtype == "bfloat16" else torch.int32
+    assert got.shape == (Vs, K, M)
+    assert torch.equal(got.view(bits), want.view(bits))
+    if case == "all -1":  # every slot reads position (pad_y - 1, pad_x - 1)
+        corner = convert.tensor(vol)[:, :, pad_y - 1, pad_x - 1]
+        assert torch.equal(got.view(bits), corner[..., None].expand(-1, -1, M).view(bits))
 
 
 def _lookup_inputs(dtype, B):
@@ -127,3 +169,34 @@ def test_build_cost_volume_matches_reference(radius, increment, flat_window):
     if flat_window:  # not degenerate: the moments' rounding leaves a variance > MIN_VAR
         core = got[:, 15:25, 105:195].float()
         assert (core < 2.0).all() and (torch.abs(core - 1.0) < 0.01).all()
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("nearest", [False, True])
+@pytest.mark.parametrize("case", ["R=1001 over all of K", "R=14 in a band", "B=1 over all of K",
+                                  "B=10 in a band"])
+def test_contract_lookup_edge_shapes_match_reference(dtype, nearest, case):
+    """Shapes H6's kernel splits unevenly (R odd or not a multiple of 4, one
+    candidate) and narrow and wide slice ranges: k in a 4-slice band (a
+    tile's lookups read a few slices) and k over all of K (each lookup
+    reads its own); NaN and +-inf lanes in each."""
+    rng = np.random.RandomState(7)
+    R = {"R=1001 over all of K": 1001, "R=14 in a band": 14}.get(case, 640)
+    B = 1 if case.startswith("B=1 ") else 10
+    Vs, K = 3, 40
+    cols_t = jnp.asarray(rng.rand(Vs, K, R).astype(np.float32), dtype=dtype)
+    if case.endswith("band"):
+        k = (20.0 + 4.0 * rng.rand(B, R)).astype(np.float32)
+    else:
+        k = ((K - 1.0) * rng.rand(B, R)).astype(np.float32)
+    k[0, :3] = [np.nan, np.inf, -np.inf]
+    look = jcols.nearest_lookup if nearest else jcols.tent_lookup
+    want = np.asarray(look(jnp.moveaxis(cols_t, 1, -1)[None], jnp.asarray(k)[:, None]))
+    got = tcols.contract_lookup(convert.tensor(cols_t), torch.from_numpy(k),
+                                nearest=nearest).numpy()
+    assert got.shape == want.shape == (B, Vs, R)
+    if nearest:
+        np.testing.assert_array_equal(got, want)
+    else:
+        assert np.array_equal(np.isnan(got), np.isnan(want))
+        np.testing.assert_allclose(got, want, rtol=0, atol=1.2e-7)

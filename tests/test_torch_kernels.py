@@ -15,7 +15,8 @@ reference package itself runs on the CPU, on the same inputs:
                        coordinate against the same mirror
   H3 rebase_view       vs the CPU branch of build_rebased_view (bit-exact)
   H4 geom_cost         vs geom_volume_cost_view_ref (max abs < 1e-4), one view
-                       and geom_cost_views over every source view
+                       and geom_cost_views over every source view; and the
+                       shapes its 32-bit offsets inside a view can address
 
 The CUDA kernels themselves run only on the card (chip_smoke.py holds each
 against these plain versions there).
@@ -321,6 +322,19 @@ def test_geom_cost_one_view_is_a_slice_of_views(scene):
     for v in range(tvs.D.shape[0]):
         one = tnv.geom_volume_cost_view(tvs.D[v], planes, tvs.geom_consts[v], K)
         assert torch.equal(one.view(torch.int32), views[v].view(torch.int32))
+
+
+@pytest.mark.parametrize("shape,fits", [
+    ((160, 8, 2400, 3200), True),   # 4 views x 4.9 GB of D: offsets stay inside a view
+    ((160, 8, 480, 640), True),
+    ((600, 8, 2400, 3200), False),  # one view's D: K * H * W >= 2^32
+    ((160, 160, 2400, 3200), False),  # the planes: 4C * H * W >= 2^32
+])
+def test_geom_offsets_fit(shape, fits):
+    """H4 addresses each view from a 64-bit base, so only one view's D and
+    the planes bound it; the number of views does not count."""
+    K, C, H, W = shape
+    assert tnv.geom_offsets_fit(K, C, H, W) is fits
 
 
 def test_pack_consts_match(scene):
