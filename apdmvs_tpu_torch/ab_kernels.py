@@ -1,8 +1,8 @@
-"""Device times of H1, H2, H4, H5, H6 and H7 of the port found under ROOT.
+"""Device times of the port's kernels H1-H8 found under ROOT.
 
     python apdmvs_tpu_torch/ab_kernels.py ROOT [GROUP ...]
 
-GROUP is any of h1, h2, h4, h5, h6, h7 (default: all of them).
+GROUP is any of h1, h2, h3, h4, h5, h6, h7, h8 (default: all of them).
 
 Imports ``apdmvs_tpu_torch`` from ROOT (a checkout, or a commit unpacked
 with ``git archive``), builds its kernels and times, on the card, in device
@@ -17,6 +17,9 @@ plane fields of ``chip_smoke.py`` phase 2):
   still takes one: C=9 with j2=25 and C=8 with j2=49;
 - H2 over the four source views at C=9: one ``ncc_cost_views`` launch where
   the package has it, else four one-view calls;
+- H3 ``rebase_view`` at j2=25 and 49 on that E around view 0's ground
+  truth (``ncc._base_slice_map``), each first held bit-exact against its
+  plain version, beside ``torch.gather`` with the same index tensor;
 - H4 at C=8 (the sweep chunk's planes) over the trunc depth volumes: one
   view, and the four source views: one ``geom_cost_views`` launch where the
   package has it, else four one-view calls and the ``torch.stack`` the
@@ -29,6 +32,10 @@ plane fields of ``chip_smoke.py`` phase 2):
 - H5 ``gather_cols`` on the flagship's volumes at its worklist: C36 and D
   at the weak pixels (24576 slots), C9 at their anchors (196608 slots),
   each beside ``vol[:, :, ys, xs]`` (the same copy as one indexing call);
+- H8 ``volume_sample`` on E (bf16) and D (f32, view 1) at the slices of
+  view 0's ground truth, each first held bit-exact against its plain
+  version, beside one trilinear 5-D ``F.grid_sample`` over the volume in
+  f32, and on their first 128 pixels (one block: the launch floor);
 - H6 ``contract_lookup``, each case first held against its plain version
   (tent within 1.2e-7 with the same NaN lanes, nearest bit-exact): on the
   first call of each kind (table, B) of one flagship pass, captured with
@@ -74,7 +81,7 @@ def graph_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-GROUPS = ("h1", "h2", "h4", "h5", "h6", "h7")
+GROUPS = ("h1", "h2", "h3", "h4", "h5", "h6", "h7", "h8")
 
 
 def _helpers(root: str):
@@ -200,6 +207,54 @@ def main(root: str, groups=GROUPS) -> None:
             times["H4_C8_4views"] = graph_ms(lambda: torch.stack([
                 nv.geom_volume_cost_view(Ds[v], pcf, gconsts[v], K) for v in range(V - 1)]))
         del vs_d, Ds
+    if "h3" in groups:
+        # H3 around view 0's ground truth (chip_smoke.py phase 2's base map),
+        # beside torch.gather with the same index tensor; each j2 first held
+        # against the plain version
+        base_k = ncc._base_slice_map(vs, dm[0])
+        for j2 in (nv.J2_REBASE, nv.SWEEP_J2):
+            R, bf = nv.build_rebased_view(E, base_k, K, j2=j2)
+            R_ref, bf_ref = nv.build_rebased_view_ref(E, base_k, K, j2=j2)
+            if not (torch.equal(R.view(torch.int16), R_ref.view(torch.int16))
+                    and torch.equal(bf, bf_ref)):
+                raise AssertionError(f"H3 under {root} disagrees with its plain version")
+            del R, bf, R_ref, bf_ref
+            J = (j2 - 1) // 2
+            idx = (torch.clamp(torch.round(base_k), J, K - 1 - J).long()[None]
+                   + torch.arange(j2, device=dev)[:, None, None] - J)
+            times[f"H3_j2_{j2}"] = graph_ms(lambda: nv.build_rebased_view(E, base_k, K, j2=j2))
+            times[f"gather_j2_{j2}"] = graph_ms(lambda: torch.gather(E, 0, idx))
+            del idx
+
+    if "h8" in groups:
+        # H8 on E (bf16) and D (f32) at view 0's ground truth (chip_smoke.py's
+        # ops phase), each first held against the plain version, beside one
+        # trilinear 5-D grid_sample over the volume in f32
+        import torch.nn.functional as F
+
+        Ds = ncc.add_depth_volumes(vs, dm, cams, 1.2, 9.6).D
+        k_E = vol.depth_to_slice(ncc._edge_pad(gt, nv.PAD_Y, nv.PAD_Y + Hp - H, nv.PAD_X,
+                                               nv.PAD_X + Wp - W), u_min, du).contiguous()
+        for name, Ev, kk in (("E", E, k_E), ("D", Ds[0], vol.depth_to_slice(gt, u_min, du))):
+            out, ref = vol.volume_sample(Ev, kk), vol.volume_sample_ref(Ev, kk)
+            if not torch.equal(out.view(torch.int32), ref.view(torch.int32)):
+                raise AssertionError(f"H8 under {root} disagrees with its plain version ({name})")
+            Kv, Hv, Wv = Ev.shape
+            Ef = Ev.float()[None, None]
+            gy, gx = torch.meshgrid(torch.arange(Hv, device=dev, dtype=torch.float32),
+                                    torch.arange(Wv, device=dev, dtype=torch.float32),
+                                    indexing="ij")
+            grid = torch.stack([gx / (Wv - 1) * 2 - 1, gy / (Hv - 1) * 2 - 1,
+                                kk / (Kv - 1) * 2 - 1], -1)[None, None]
+            times[f"H8_{name}"] = graph_ms(lambda: vol.volume_sample(Ev, kk))
+            # the same kernel on the first 128 pixels: one block, so its time
+            # is the graph's launch floor and one k -> E -> store chain
+            e1, k1 = Ev[:, :1, :128].contiguous(), kk[:1, :128].contiguous()
+            times[f"H8_{name}_128px"] = graph_ms(lambda: vol.volume_sample(e1, k1))
+            times[f"grid_sample_{name}"] = graph_ms(lambda: F.grid_sample(
+                Ef, grid, mode="bilinear", padding_mode="border", align_corners=True))
+            del Ef, grid
+        del Ds
     del Es, vs
 
     if {"h5", "h6", "h7"} & set(groups):

@@ -343,6 +343,14 @@ _REBASE_SIG = {
 }
 
 
+def rebase_vector_path(num_positions: int, *addresses: int) -> bool:
+    """Whether H3 copies 16 bytes at a time: every slice row of E and R
+    (``num_positions`` bf16 elements each), base_k and bf must start on a
+    16-byte boundary, so the count must be a multiple of 8 and every base
+    address 16-byte aligned. Otherwise it copies element by element."""
+    return num_positions % 8 == 0 and all(a % 16 == 0 for a in addresses)
+
+
 def build_rebased_view(E_pad, base_k, num_slices: int, j2: int = J2_REBASE):
     """Kernel H3 wrapper (for the TPU kernel ``_rebase_kernel``)."""
     K, PH, PW = E_pad.shape
@@ -358,12 +366,16 @@ def build_rebased_view(E_pad, base_k, num_slices: int, j2: int = J2_REBASE):
         raise ValueError(f"unsupported device {E_pad.device}")
     if E_pad.dtype != torch.bfloat16:
         raise ValueError("the CUDA rebase kernel copies a bf16 volume")
+    P = PH * PW
+    if P >= 2 ** 31:
+        raise ValueError(f"{PH}x{PW} positions exceed the kernel's 32-bit offsets in a slice")
     E_pad, base_k = E_pad.contiguous(), base_k.contiguous()
     R = torch.empty((j2, PH, PW), dtype=E_pad.dtype, device=E_pad.device)
     bf = torch.empty((PH, PW), dtype=torch.float32, device=E_pad.device)
+    ptrs = (E_pad.data_ptr(), base_k.data_ptr(), R.data_ptr(), bf.data_ptr())
     lib = _build.load("rebase_view", _REBASE_SIG)
     err = lib.rebase_view_launch(
-        E_pad.data_ptr(), base_k.data_ptr(), K, PH, PW, j2, R.data_ptr(), bf.data_ptr(),
+        ptrs[0], ptrs[1], K, P, j2, int(rebase_vector_path(P, *ptrs)), ptrs[2], ptrs[3],
         torch.cuda.current_stream(E_pad.device).cuda_stream,
     )
     _build.check(err, "rebase_view")

@@ -19,7 +19,11 @@ and no ``ok`` line is printed:
    (a sweep chunk) and C=1 (the K2 entry point), then over all four source
    views at C=9 through ``ncc_cost_views`` (what the main path launches),
    with planes the folded slice coordinate cannot take (w = 0, NaN, an
-   infinite normal); H3 at j2=25 and 49; H4 at C=8 over the depth volumes
+   infinite normal); H3 at j2=25 and 49, with the share of 8-position
+   groups whose bases span 0 and 1 slices, then H3 and H8 bit-exact on
+   edge cases (``h3_h8_edges``: sizes not a multiple of 8 or 4, pointers
+   one element off alignment, j2 = 1 and K - 1, bases of exact halves and
+   +-inf, k lanes NaN, +-inf, 0, K-1); H4 at C=8 over the depth volumes
    of all four source views through ``geom_cost_views`` (what the main
    path launches), bit-exact, with the same kinds of degenerate planes
    (NaN in the plain version's lanes) and with views that do not share one
@@ -437,9 +441,14 @@ def phase_kernels(dev, inputs):
     rows.append(dict(name="rebase_view", route="cuda", source="apdmvs_tpu_torch/csrc/rebase_view.cu",
                      replaces="apdmvs_tpu/ops/ncc_volume.py:1029", max_abs_err=err_h3, ms=ms,
                      plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib))
+    b = torch.clamp(torch.round(base_k), J, K - 1 - J).reshape(-1, 8)
+    span = b.amax(1) - b.amin(1)
+    span0, span1 = (100 * float((span == s).float().mean()) for s in (0, 1))
     log(f"kernel H3 rebase_view j2=25 {PH}x{PW}: device {ms:.4f} ms, {call:.4f} ms a call "
-        f"(plain {plain:.3f}, torch.gather device {lib:.4f}, bound {b_ms:.4f} by {b_by})")
-    del idx
+        f"(plain {plain:.3f}, torch.gather device {lib:.4f}, bound {b_ms:.4f} by {b_by}); "
+        f"bases of 8-position groups span 0 slices in {span0:.2f}%, 1 in {span1:.2f}%")
+    del idx, b, span
+    h3_h8_edges(dev, E, D, base_k)
 
     # ---- H2 ncc_cost at the main path's batch shapes, all from E
     x, y = geometry.pixel_grid(H, W, dev)
@@ -692,6 +701,89 @@ def _counters():
             "gather_cols": cols.gather_cols, "contract_lookup": cols.contract_lookup,
             "gather_rows": cols.gather_rows, "gather_rows_sorted": cols.gather_rows_sorted,
             "volume_sample": vol.volume_sample}
+
+
+def _off_by_one(x):
+    """``x`` copied one element past the start of a buffer: contiguous, its
+    data not 16-byte aligned."""
+    import torch
+
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    buf[1:] = x.reshape(-1)
+    return buf[1:].view(x.shape)
+
+
+def h3_h8_edges(dev, E, D, base_k):
+    """H3 and H8 on inputs the main path's shapes never reach, each
+    bit-exact against its plain version (H8 with NaN where the plain
+    version has NaN): H3 on 495x641 positions (not a multiple of 8) and on
+    E and base_k one element past alignment (both take its
+    element-by-element path), at j2 = 1 and K - 1, and with base_k lanes of
+    exact halves and +-inf; H8 on E (bf16) at 495x895 and D (f32) at
+    479x639 pixels (not multiples of 4) and with E and k one element past
+    alignment, k holding NaN, +-inf, 0, K-1, out-of-range, integer and
+    fractional lanes. One line a case."""
+    import torch
+
+    from apdmvs_tpu_torch.ops import ncc_volume as nv, volume as vol
+
+    nan, inf = float("nan"), float("inf")
+    halves = base_k.clone()
+    J = (nv.SWEEP_J2 - 1) // 2
+    halves[0, :16] = torch.tensor([J - 0.5, J + 0.5, 40.5, 41.5, K - 1 - J - 0.5,
+                                   K - 1 - J + 0.5, -0.5, K + 0.5] * 2)
+    halves[1, :8] = inf  # a group of 8 equal bases, clamped
+    halves[2, ::3] = inf
+    halves[3, ::5] = -inf
+    odd = (slice(None), slice(0, 495), slice(0, 641))
+    h3 = {"495x641 positions": (E[odd].contiguous(), base_k[odd[1:]].contiguous(), nv.J2_REBASE),
+          "E and base_k 1 element off": (_off_by_one(E), _off_by_one(base_k), nv.J2_REBASE),
+          "j2 = 1": (E, base_k, 1), f"j2 = K - 1 = {K - 1}": (E, base_k, K - 1),
+          "halves and +-inf bases": (E, halves, nv.SWEEP_J2)}
+    for name, (Ev, bk, j2) in h3.items():
+        R, bf = nv.build_rebased_view(Ev, bk, K, j2=j2)
+        R_ref, bf_ref = nv.build_rebased_view_ref(Ev, bk, K, j2=j2)
+        exact = (torch.equal(R.view(torch.int16), R_ref.view(torch.int16))
+                 and torch.equal(bf, bf_ref))
+        vec = nv.rebase_vector_path(bk.numel(), Ev.data_ptr(), bk.data_ptr(), R.data_ptr(),
+                                    bf.data_ptr())
+        log(f"kernel H3 edge case {name}: E {tuple(Ev.shape)} at byte offset "
+            f"{Ev.data_ptr() % 16} mod 16, j2={j2}, 16-byte path {vec}: bit-exact {exact} "
+            "(tol: bit-exact)")
+        if not exact:
+            raise AssertionError(f"H3 disagrees with its plain version ({name})")
+        del R, bf, R_ref, bf_ref
+    del h3, halves
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    lanes = torch.tensor([nan, inf, -inf, 0.0, K - 1.0, -5.0, K + 10.0, 7.0, 31.0, K - 2.0],
+                         device=dev)
+
+    def slices(shape):
+        k = (K + 4) * torch.rand(shape, generator=gen, device=dev) - 2
+        k.view(-1)[:lanes.numel()] = lanes
+        k[1, ::7] = nan
+        return k
+
+    h8 = {}
+    for dname, V in (("E bf16", E), ("D f32", D)):
+        Hv, Wv = V.shape[1:]
+        small = (slice(None), slice(0, Hv - 1), slice(0, Wv - 1))
+        h8[f"{dname} {Hv - 1}x{Wv - 1} pixels"] = (V[small].contiguous(), slices((Hv - 1, Wv - 1)))
+        h8[f"{dname}, E and k 1 element off"] = (_off_by_one(V), _off_by_one(slices((Hv, Wv))))
+    for name, (Ev, kk) in h8.items():
+        out, ref = vol.volume_sample(Ev, kk), vol.volume_sample_ref(Ev, kk)
+        isn = torch.isnan(ref)
+        exact = (torch.equal(torch.isnan(out), isn)
+                 and torch.equal(out[~isn].view(torch.int32), ref[~isn].view(torch.int32)))
+        log(f"kernel H8 edge case {name}: E {tuple(Ev.shape)} at byte offset "
+            f"{Ev.data_ptr() % 16}, k at {kk.data_ptr() % 16} mod 16: bit-exact {exact}, NaN "
+            f"outputs {int(isn.sum())} (tol: bit-exact, NaN where the plain version has NaN)")
+        if not exact:
+            raise AssertionError(f"H8 disagrees with its plain version ({name})")
+    del h8
+    torch.cuda.empty_cache()
 
 
 def phase_main_path(dev, inputs):

@@ -54,6 +54,14 @@ def t(a, dtype=None):
     return out if dtype is None else out.to(dtype)
 
 
+def off_by_one(x: torch.Tensor) -> torch.Tensor:
+    """``x`` copied into a buffer one element past its start: a contiguous
+    tensor whose data is not 16-byte aligned."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype)
+    buf[1:] = x.reshape(-1)
+    return buf[1:].view(x.shape)
+
+
 class JaxDraws:
     """Port draw source replaying the reference pass's draws from ``key``."""
 

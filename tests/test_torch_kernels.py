@@ -13,7 +13,10 @@ reference package itself runs on the CPU, on the same inputs:
                        (max abs < 1e-4, tests/test_ncc_volume.py:112); and a
                        float32 emulation of the kernel's folded slice
                        coordinate against the same mirror
-  H3 rebase_view       vs the CPU branch of build_rebased_view (bit-exact)
+  H3 rebase_view       vs the CPU branch of build_rebased_view (bit-exact),
+                       also at j2 = 1 and K - 1, odd widths, unaligned
+                       inputs and +-inf bases; and the wrapper's choice of
+                       the kernel's 16-byte path
   H4 geom_cost         vs geom_volume_cost_view_ref (max abs < 1e-4), one view
                        and geom_cost_views over every source view; and the
                        shapes its 32-bit offsets inside a view can address
@@ -27,7 +30,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import DMAX, DMIN, ring_scene, t
+from _torch_parity import DMAX, DMIN, off_by_one, ring_scene, t
 from apdmvs_tpu import geometry as jgeom, ncc as jncc
 from apdmvs_tpu.ops import ncc_volume as jnv, volume as jvol
 from apdmvs_tpu_torch import convert, geometry as tgeom, ncc as tncc
@@ -277,16 +280,55 @@ def test_folded_slice_coordinate_matches_mirror(scene, case):
         assert nan.any()
 
 
-@pytest.mark.parametrize("j2", [25, 49])
-def test_rebase_view_bit_exact(scene, j2):
+@pytest.mark.parametrize("j2,case", [
+    (25, "scene"), (49, "scene"), (1, "scene"), (K - 1, "scene"),
+    (25, "width_641"), (25, "offset_1"), (49, "halves_inf"),
+], ids=["25", "49", "j2_1", "j2_K-1", "width_641", "offset_1", "halves_inf"])
+def test_rebase_view_bit_exact(scene, j2, case):
+    """The plain version against the reference's CPU branch, bit for bit,
+    also on the inputs of chip_smoke.py's H3 edge cases: j2 = 1 and K - 1,
+    55 x 641 positions (not a multiple of 8), E and base_k one element past
+    an aligned start, base_k with exact halves and +-inf."""
     jvs, tvs = scene["jvs"], scene["tvs"]
     rs = np.random.RandomState(j2)
-    base = rs.uniform(-3.0, K + 3.0, jvs.ref_pad.shape).astype(np.float32)
+    jE, tE = jvs.E[1], tvs.E[1]
+    if case == "width_641":
+        # 55 x 641 positions: not a multiple of 8
+        jE = jnp.asarray(rs.rand(K, 55, 641).astype(np.float32) * 255).astype(jnp.bfloat16)
+        tE = convert.tensor(jE)
+    base = rs.uniform(-3.0, K + 3.0, jE.shape[1:]).astype(np.float32)
     base[0, :8] = np.arange(8) + 0.5  # exact halves: round half to even
-    jR, jbf = jnv.build_rebased_view(jvs.E[1], jnp.asarray(base), K, j2=j2)
-    tR, tbf = tnv.build_rebased_view(tvs.E[1], t(base), K, j2=j2)
+    tbase = t(base)
+    if case == "offset_1":
+        tE, tbase = off_by_one(tE), off_by_one(tbase)
+    if case == "halves_inf":
+        J = (j2 - 1) // 2
+        base[1, :8] = [np.inf, -np.inf, J - 0.5, J + 0.5, K - 1 - J - 0.5, K - 1 - J + 0.5,
+                       -0.5, K + 0.5]
+        base[2, ::3] = np.inf
+        base[3, ::5] = -np.inf
+        tbase = t(base)
+    jR, jbf = jnv.build_rebased_view(jE, jnp.asarray(base), K, j2=j2)
+    tR, tbf = tnv.build_rebased_view(tE, tbase, K, j2=j2)
+    assert tR.shape == (j2, *jE.shape[1:])
     assert torch.equal(tR.view(torch.int16), convert.tensor(jR).view(torch.int16))
     assert torch.equal(tbf, t(jbf))
+
+
+@pytest.mark.parametrize("positions,shifts,vector", [
+    (496 * 896, (0, 0, 0, 0), True),
+    (8, (0, 0, 0, 0), True),
+    (496 * 641, (0, 0, 0, 0), True),  # groups of 8 cross image rows: no matter
+    (495 * 641, (0, 0, 0, 0), False),  # slice rows of R and E not 16-byte aligned
+    (496 * 896, (2, 0, 0, 0), False),  # E one bf16 element off
+    (496 * 896, (0, 4, 0, 0), False),  # base_k one f32 element off
+    (496 * 896, (0, 0, 8, 0), False),
+    (496 * 896, (0, 0, 0, 12), False),
+])
+def test_rebase_vector_path(positions, shifts, vector):
+    """H3's choice between its 16-byte and element-by-element copies."""
+    addresses = [4096 * (i + 1) + s for i, s in enumerate(shifts)]
+    assert tnv.rebase_vector_path(positions, *addresses) is vector
 
 
 @pytest.mark.parametrize("case", ["oracle", "perturbed", "sweep_chunk"])

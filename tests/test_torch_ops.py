@@ -5,7 +5,8 @@ mirrors on the CPU:
                           the mirror has NaN, elsewhere within 1e-5 of
                           max(|e0|, |e1|): XLA's CPU build may fuse the lerp
                           into a multiply-add), f32 and bf16, with k NaN,
-                          +-inf, out of range and integer
+                          +-inf, out of range and integer, on sizes not a
+                          multiple of 4 and unaligned inputs
   depth_to_slice -> build_volume -> volume_sample
                           vs the reference's same chain, and vs the port's
                           direct bilinear warp (tests/test_volume.py:87-90)
@@ -24,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import DMAX, DMIN, ring_scene, t
+from _torch_parity import DMAX, DMIN, off_by_one, ring_scene, t
 from apdmvs_tpu import geometry as jgeom, ops as jops
 from apdmvs_tpu.ops import cols as jcols, ncc_volume as jnv, volume as jvol
 from apdmvs_tpu_torch import convert, geometry as tgeom, ops as tops, sampling
@@ -77,23 +78,41 @@ def test_volume_sample_matches_mirror(dtype):
     assert (np.abs(got - want)[~nan] <= 1e-5 * scale[~nan]).all()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_volume_sample_special_lanes(dtype):
+@pytest.mark.parametrize("dtype,case", [
+    (torch.float32, "2x8"), (torch.bfloat16, "2x8"),
+    (torch.float32, "3x7"), (torch.bfloat16, "3x7"),
+    (torch.float32, "offset_1"), (torch.bfloat16, "offset_1"),
+], ids=["dtype0", "dtype1", "f32-3x7", "bf16-3x7", "f32-offset_1", "bf16-offset_1"])
+def test_volume_sample_special_lanes(dtype, case):
     """+-inf and out-of-range k clamp to the end slices; an integer k reads
-    its slice exactly; a NaN k gives NaN."""
+    its slice exactly; a NaN k gives NaN; and every lane agrees with the
+    reference's volume_sample_ref (exactly where k is not fractional, else
+    to the tolerance of test_volume_sample_matches_mirror). Beside 2x8
+    pixels, the inputs of chip_smoke.py's H8 edge cases: 3x7 pixels (not a
+    multiple of 4) and E and k one element past an aligned start."""
     rs = np.random.RandomState(4)
     K = 12
-    E = torch.from_numpy(rs.rand(K, 2, 8).astype(np.float32) * 255).to(dtype)
-    k = torch.tensor([[np.nan, np.inf, -np.inf, -3.0, K + 4.0, K - 1.0, 0.0, 5.0],
-                      [1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 10.0, 11.0]], dtype=torch.float32)
-    out = tvol.volume_sample(E, k)
-    e = E.float()
-    assert torch.isnan(out[0, 0])
-    expect = [e[K - 1, 0, 1], e[0, 0, 2], e[0, 0, 3], e[K - 1, 0, 4], e[K - 1, 0, 5],
-              e[0, 0, 6], e[5, 0, 7]]
-    assert torch.equal(out[0, 1:], torch.stack(expect))
-    ki = k[1].long()
-    assert torch.equal(out[1], e[ki, 1, torch.arange(8)])
+    H, W = (2, 8) if case == "2x8" else (3, 7)
+    E = torch.from_numpy(rs.rand(K, H, W).astype(np.float32) * 255).to(dtype)
+    lanes = [np.nan, np.inf, -np.inf, -3.0, K + 4.0, K - 1.0, 0.0, 5.0,
+             1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 10.0, 11.0]
+    k = rs.uniform(0.0, K - 1.0, H * W).astype(np.float32)
+    k[:16] = lanes
+    k = torch.from_numpy(k.reshape(H, W))
+    tE, tk = (off_by_one(E), off_by_one(k)) if case == "offset_1" else (E, k)
+    out = tvol.volume_sample(tE, tk).reshape(-1)
+    e = E.float().reshape(K, -1)
+    assert torch.isnan(out[0]) and not torch.isnan(out[1:]).any()
+    slices = [K - 1, 0, 0, K - 1, K - 1, 0, 5] + [int(v) for v in lanes[8:]]
+    assert torch.equal(out[1:16], e[slices, torch.arange(1, 16)])
+    jdtype = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    want = t(jvol.volume_sample_ref(jnp.asarray(E.float().numpy()).astype(jdtype),
+                                    jnp.asarray(k.numpy()))).reshape(-1)
+    assert torch.isnan(want[0]) and torch.equal(out[1:16], want[1:16])
+    k0 = torch.floor(k.reshape(-1)[16:]).long()
+    pix = torch.arange(16, H * W)
+    scale = torch.maximum(e[k0, pix].abs(), e[torch.clamp(k0 + 1, max=K - 1), pix].abs())
+    assert ((out[16:] - want[16:]).abs() <= 1e-5 * scale).all()
 
 
 def test_volume_chain_matches_reference_and_direct_warp():
