@@ -8,6 +8,8 @@ import argparse
 
 
 def main(argv=None) -> None:
+    from apdmvs_tpu_torch import scene
+
     ap = argparse.ArgumentParser(
         prog="apdmvs_tpu_torch",
         description="APD-MVS multi-view stereo reconstruction (PyTorch / CUDA)",
@@ -17,6 +19,9 @@ def main(argv=None) -> None:
                     help="torch device to run on (default cuda; 'cpu' runs the plain "
                     "PyTorch versions of the kernels)")
     ap.add_argument("--seed", type=int, default=0, help="random seed")
+    ap.add_argument("--fusion", choices=scene.FUSION_VARIANTS, default="eth",
+                    help="fusion variant (APD.cpp:826-1296); eth-device runs the ETH "
+                    "algorithm on --device (fusion_device.py)")
     ap.add_argument("--show-medium-result", action="store_true",
                     help="dump per-pass depth/normal/weak JPEGs (main.cpp:127-134)")
     ap.add_argument("--delete-intermediates", action="store_true",
@@ -36,12 +41,11 @@ def main(argv=None) -> None:
                     help="inverse-depth slices of the plane-sweep volumes")
     args = ap.parse_args(argv)
 
-    from apdmvs_tpu_torch import scene
-
     scene.run_scene(
         args.dense_folder,
         seed=args.seed,
         device=args.device,
+        fusion_variant=args.fusion,
         show_medium_result=args.show_medium_result,
         keep_intermediates=not args.delete_intermediates,
         max_rounds=args.max_rounds,

@@ -1,8 +1,9 @@
 """Depth-map fusion into a point cloud.
 
-Vectorized equivalent of the reference's host-side ETH fusion (RunFusion:
-APD.cpp:826-977, the one main() calls). The Tanks&Temples variants are not
-ported yet.
+Vectorized equivalents of the reference's host-side fusion (ETH variant
+RunFusion: APD.cpp:826-977 — the one main() calls — plus the two unused-but
+-present Tanks&Temples variants, APD.cpp:979-1296, kept as capabilities).
+The ETH algorithm also runs on the card: ``fusion_device.py``.
 
 Fusion is host code in the reference (pure C++ loops); here the per-view
 consistency voting is vectorized NumPy over whole depth maps, with the
@@ -210,6 +211,103 @@ def fuse_eth(
                 add[m] = views[j].image_bgr[used_r[jj][m], used_c[jj][m]]
                 csum += add[accept]
             csum /= (num[accept] + 1.0)[:, None]
+            all_coords.append(X[accept].astype(np.float32))
+            all_colors.append(csum.astype(np.uint8))
+
+    if not all_coords:
+        return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.uint8)
+    return np.concatenate(all_coords), np.concatenate(all_colors)
+
+
+def fuse_tat(
+    views: Sequence[FusionView],
+    src_ids: Sequence[Sequence[int]],
+    advanced: bool = False,
+    backend: str = "auto",
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Tanks&Temples fusion variants with escalating per-k thresholds
+    (RunFusion_TAT_Intermediate: APD.cpp:979-1147; RunFusion_TAT_advanced:
+    APD.cpp:1149-1296 — present in the reference but not called by main()).
+
+    intermediate: dist < k*0.25, ddiff < k/3500, angle < k*3deg + 4deg,
+    accept at the smallest k in [2, num_src] with count >= k.
+    advanced: dist < k*0.25, ddiff < k/3000, no angle check.
+    """
+    if backend in ("auto", "native") and all(
+        v.depth.shape == views[0].depth.shape for v in views
+    ):
+        from apdmvs_tpu_torch import native
+
+        r = native.fuse_tat(views, src_ids, advanced=advanced)
+        if r is not None:
+            return r
+        if backend == "native":
+            raise RuntimeError("native fusion library unavailable")
+    dist_base = 0.25
+    depth_base = 1.0 / (3000.0 if advanced else 3500.0)
+    angle_base = 0.06981317007977318  # 4 deg
+    angle_grad = 0.05235987755982988  # 3 deg
+
+    masks = [np.zeros(v.depth.shape, bool) for v in views]
+    all_coords: List[np.ndarray] = []
+    all_colors: List[np.ndarray] = []
+
+    for i, view in enumerate(views):
+        H, W = view.depth.shape
+        ys, xs = np.mgrid[0:H, 0:W].astype(np.float64)
+        valid = view.depth > 0.0
+        if view.block is not None:
+            valid &= view.block >= 128
+        X = _backproject_world(view, xs, ys, view.depth.astype(np.float64))
+        J = len(src_ids[i])
+        dists = np.full((J, H, W), np.inf)
+        ddiffs = np.full((J, H, W), np.inf)
+        angles = np.full((J, H, W), np.inf)
+        used_r = np.zeros((J, H, W), np.int64)
+        used_c = np.zeros((J, H, W), np.int64)
+        for jj, j in enumerate(src_ids[i]):
+            sv = views[j]
+            sH, sW = sv.depth.shape
+            px, py, _ = _project(sv, X)
+            src_c = (px + 0.5).astype(np.int64)
+            src_r = (py + 0.5).astype(np.int64)
+            inb = (src_c >= 0) & (src_c < sW) & (src_r >= 0) & (src_r < sH)
+            cc = np.clip(src_c, 0, sW - 1)
+            rr = np.clip(src_r, 0, sH - 1)
+            ok = inb & ~masks[j][rr, cc] & (sv.depth[rr, cc] > 0.0)
+            X2 = _backproject_world(sv, cc.astype(np.float64), rr.astype(np.float64), sv.depth[rr, cc].astype(np.float64))
+            bx, by, proj_depth = _project(view, X2)
+            err = np.sqrt((xs - bx) ** 2 + (ys - by) ** 2)
+            rel = np.abs(proj_depth - view.depth) / np.maximum(view.depth, 1e-12)
+            ang = _angle(view.normal, sv.normal[rr, cc])
+            dists[jj] = np.where(ok, err, np.inf)
+            ddiffs[jj] = np.where(ok, rel, np.inf)
+            angles[jj] = np.where(ok, ang, np.inf)
+            used_r[jj], used_c[jj] = rr, cc
+
+        accept = np.zeros((H, W), bool)
+        use = np.zeros((J, H, W), bool)
+        count_final = np.zeros((H, W), np.int64)
+        for k in range(2, J + 1):
+            ok_k = (dists < k * dist_base) & (ddiffs < k * depth_base)
+            if not advanced:
+                ok_k &= angles < (k * angle_grad + angle_base)
+            count = ok_k.sum(axis=0)
+            acc_k = valid & ~accept & (count >= k)
+            use = np.where(acc_k[None], ok_k, use)
+            count_final = np.where(acc_k, count, count_final)
+            accept |= acc_k
+
+        masks[i] |= accept  # TAT variants mark the ref pixel (APD.cpp:1138)
+        if accept.any():
+            csum = view.image_bgr.astype(np.float64)[accept].copy()
+            if not advanced:  # intermediate averages the used src colors
+                for jj, j in enumerate(src_ids[i]):
+                    m = accept & use[jj]
+                    add = np.zeros((H, W, 3))
+                    add[m] = views[j].image_bgr[used_r[jj][m], used_c[jj][m]]
+                    csum += add[accept]
+                csum /= (count_final[accept] + 1.0)[:, None]
             all_coords.append(X[accept].astype(np.float32))
             all_colors.append(csum.astype(np.uint8))
 

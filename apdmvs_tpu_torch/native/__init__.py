@@ -64,6 +64,12 @@ def _load() -> Optional[ctypes.CDLL]:
             up, up, up, ip, ip, ctypes.c_int, ctypes.c_float, ctypes.c_float,
             fp, up, ctypes.c_longlong,
         ]
+        lib.fuse_tat_native.restype = ctypes.c_longlong
+        lib.fuse_tat_native.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, dp, dp, dp, fp, fp,
+            up, up, ip, ip, ctypes.c_int, ctypes.c_int,
+            fp, up, ctypes.c_longlong,
+        ]
         _lib = lib
         return _lib
 
@@ -135,6 +141,30 @@ def fuse_eth(views, src_ids, weak_factor=0.45, strong_factor=0.3):
         _ptr(blocks, ctypes.c_ubyte),
         _ptr(src_arr, ctypes.c_int), _ptr(counts, ctypes.c_int), max_src,
         float(weak_factor), float(strong_factor),
+        _ptr(out_xyz, ctypes.c_float), _ptr(out_bgr, ctypes.c_ubyte), cap,
+    )
+    cnt = min(int(cnt), cap)
+    return out_xyz[:cnt].copy(), out_bgr[:cnt].copy()
+
+
+def fuse_tat(views, src_ids, advanced=False):
+    """Native Tanks&Temples fusion (APD.cpp:979-1296). Returns (coords [N,3]
+    f32, colors [N,3] u8) or None if the native library is unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    n, H, W, Ks, Rs, ts, depths, normals, bgrs, blocks = _pack_views(views)
+    src_arr, counts, max_src = _pack_srcs(src_ids)
+    cap = int(n) * H * W
+    out_xyz = np.empty((cap, 3), np.float32)
+    out_bgr = np.empty((cap, 3), np.uint8)
+    cnt = lib.fuse_tat_native(
+        n, H, W,
+        _ptr(Ks, ctypes.c_double), _ptr(Rs, ctypes.c_double), _ptr(ts, ctypes.c_double),
+        _ptr(depths, ctypes.c_float), _ptr(normals, ctypes.c_float),
+        _ptr(bgrs, ctypes.c_ubyte), _ptr(blocks, ctypes.c_ubyte),
+        _ptr(src_arr, ctypes.c_int), _ptr(counts, ctypes.c_int), max_src,
+        int(advanced),
         _ptr(out_xyz, ctypes.c_float), _ptr(out_bgr, ctypes.c_ubyte), cap,
     )
     cnt = min(int(cnt), cap)

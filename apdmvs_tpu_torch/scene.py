@@ -371,12 +371,29 @@ def _load_fusion_views(dense_folder: str, problems: Sequence[Problem]):
     return views, src_ids
 
 
-def run_fusion(dense_folder, problems: Sequence[Problem], out_name: str = "APD.ply") -> str:
-    """ETH-fuse all per-view outputs into ``APD/<out_name>``
-    (APD.cpp:826-977); the Tanks&Temples variants are not ported."""
+FUSION_VARIANTS = ("eth", "eth-device", "tat_intermediate", "tat_advanced")
+
+
+def run_fusion(dense_folder, problems: Sequence[Problem], variant: str = "eth",
+               out_name: str = "APD.ply", device="cuda") -> str:
+    """Fuse all per-view outputs into ``APD/<out_name>`` (reference
+    RunFusion: APD.cpp:826-977, called at main.cpp:219; the Tanks&Temples
+    variants APD.cpp:979-1296). ``eth`` and the ``tat_*`` variants run on
+    the host; ``eth-device`` runs the ETH algorithm on ``device``
+    (``fusion_device.py``) and never falls back to the host."""
     dense_folder = str(dense_folder)
+    if variant not in FUSION_VARIANTS:
+        raise ValueError(f"unknown fusion variant {variant!r}")
     views, src_ids = _load_fusion_views(dense_folder, problems)
-    coords, colors = fusion_mod.fuse_eth(views, src_ids)
+    if variant == "eth":
+        coords, colors = fusion_mod.fuse_eth(views, src_ids)
+    elif variant == "eth-device":
+        from apdmvs_tpu_torch import fusion_device
+
+        coords, colors = fusion_device.fuse_eth_device(views, src_ids, device=device)
+    else:
+        coords, colors = fusion_mod.fuse_tat(views, src_ids,
+                                             advanced=variant == "tat_advanced")
     out_path = os.path.join(dense_folder, "APD", out_name)
     formats.export_point_cloud(out_path, coords, colors)
     return out_path
@@ -394,6 +411,7 @@ def run_scene(
     dense_folder,
     seed: int = 0,
     device="cuda",
+    fusion_variant: str = "eth",
     show_medium_result: bool = False,
     keep_intermediates: bool = True,
     max_rounds: Optional[int] = None,
@@ -405,12 +423,16 @@ def run_scene(
     num_slices: int = 160,
 ) -> SceneRun:
     """Full reconstruction (main.cpp:140-233): round scheduler -> one pass
-    per (view, pass) on ``device`` -> ETH fusion -> APD/APD.ply.
+    per (view, pass) on ``device`` -> fusion (``fusion_variant``, one of
+    :data:`FUSION_VARIANTS`; ``eth-device`` fuses on ``device``) ->
+    APD/APD.ply.
 
     Images over 1000 px run more than one round; every round after the
     first runs the APD weak machinery. ``min_rounds`` forces extra rounds
     below that trigger (main.cpp:72-88), ``max_rounds`` caps them."""
     device = resolve_device(device)
+    if fusion_variant not in FUSION_VARIANTS:
+        raise ValueError(f"unknown fusion variant {fusion_variant!r}")
     dense_folder = str(dense_folder)
     problems = generate_sample_list(dense_folder)
     if verbose:
@@ -440,7 +462,7 @@ def run_scene(
                       f"view {problem.ref_image_id:08d} ({spec.state.name}, "
                       f"scale 1/{spec.scale_size}): {stats.seconds * 1000:.0f} ms, "
                       f"weak {stats.weak_pct:.1f}%, weak in {stats.weak_in}")
-    ply = run_fusion(dense_folder, problems)
+    ply = run_fusion(dense_folder, problems, variant=fusion_variant, device=device)
     if verbose:
         print(f"Fused point cloud: {ply}")
     if not keep_intermediates:  # the reference deletes per-view dirs (main.cpp:220-230)

@@ -6,9 +6,9 @@ Profiles, each under ``torch.profiler`` after a warm-up:
 
 1. the 5-view 640x480 ring scene (the one-round scene ``chip_smoke.py``
    runs): one FIRST_INIT and one geometric REFINE_ITER view-pass of view 0;
-2. bench.py's flagship pass (bench.py:89-160): a REFINE_ITER pass with
-   geometric consistency and the APD weak machinery on that scene, the
-   prior from the ground truth and a 19200-pixel weak box;
+2. the flagship pass of ``bench`` (bench.py:89-160): a REFINE_ITER pass
+   with geometric consistency and the APD weak machinery on that scene,
+   the prior from the ground truth and a 19200-pixel weak box;
 3. the 1280x960 five-view scene with a textureless window that
    ``chip_smoke.py`` runs in two rounds: after the two rounds, the last
    geometric APD view-pass of view 0 again, image-volume builds included
@@ -32,65 +32,17 @@ import os
 import shutil
 import time
 
-import numpy as np
 import torch
 
-from apdmvs_tpu_torch import geometry, ncc, pipeline, rng, scene, weak
+from apdmvs_tpu_torch import geometry, ncc, rng, scene, weak
+from apdmvs_tpu_torch.bench import (FLAGSHIP_CFG, FLAGSHIP_RTH, flagship_pass, flagship_scene,
+                                    flagship_state)
 from apdmvs_tpu_torch.datasets import synthetic
 from apdmvs_tpu_torch.ops import cols
-from apdmvs_tpu_torch.params import PassConfig, PixelState, RunState, build_schedule
+from apdmvs_tpu_torch.params import build_schedule
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 W, H, V = 640, 480, 5
-
-#: bench.py's flagship pass: REFINE_ITER + geometric consistency + APD,
-#: ransac threshold 0.00875 (bench.py:119-129)
-FLAGSHIP_CFG = PassConfig(state=RunState.REFINE_ITER, geom_consistency=True, use_APD=True,
-                          max_iterations=3, weak_peak_radius=4)
-FLAGSHIP_RTH = 0.00875
-
-
-def _sync(dev) -> None:
-    if torch.device(dev).type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
-def flagship_state(images, depths, normals, cams, num_slices: int = 160):
-    """Volumes (E, C36, C9 and the ground truth's depth volumes), prior
-    (ground truth, WEAK box rows H/2 +- H/8 and cols W/2 +- W/8) and
-    worklist capacity of bench.py's flagship pass, plus the two build
-    times in ms. Depth range 1.2 .. 9.6 (bench.py:96-100)."""
-    dev = cams.device
-    V_, H_, W_ = images.shape
-    t0 = time.perf_counter()
-    vs = ncc.build_image_volume_set(torch.as_tensor(images, device=dev), cams, 1.2, 9.6,
-                                    num_slices=num_slices, weak_cost_volumes=True)
-    _sync(dev)
-    t1 = time.perf_counter()
-    vs = ncc.add_depth_volumes(vs, torch.as_tensor(depths, device=dev), cams, 1.2, 9.6)
-    _sync(dev)
-    t2 = time.perf_counter()
-    ps = torch.full((H_, W_), int(PixelState.STRONG), dtype=torch.uint8, device=dev)
-    ps[H_ // 2 - H_ // 8:H_ // 2 + H_ // 8, W_ // 2 - W_ // 8:W_ // 2 + W_ // 8] = int(
-        PixelState.WEAK)
-    cap = scene._bucket_capacity(int((ps == PixelState.WEAK).sum()), H_ * W_)
-    prior = pipeline.PassState(
-        depth=torch.as_tensor(depths[0], device=dev),
-        normal_world=torch.as_tensor(normals[0], device=dev),
-        pixel_state=ps,
-        selected=(torch.arange(V_, device=dev) > 0)[:, None, None].expand(V_, H_, W_).contiguous(),
-    )
-    return vs, prior, cap, (1e3 * (t1 - t0), 1e3 * (t2 - t1))
-
-
-def flagship_pass(cams, vs, prior, cap, seed: int) -> pipeline.PassOutputs:
-    """One flagship pass over view 0 with draws seeded by ``seed``."""
-    H_, W_ = prior.depth.shape
-    sv = torch.arange(cams.K.shape[0], device=cams.device) > 0
-    return pipeline.patchmatch_pass(cams, sv, prior, rng.TorchDraws(seed, H_, W_, cams.device),
-                                    FLAGSHIP_CFG, vs, weak_capacity=cap,
-                                    ransac_threshold=FLAGSHIP_RTH)
-
 
 def weak_lookups(cams, vsf, prior, cap, num_slices: int):
     """The flagship pass's worklist [cap, 2], anchors [cap, 8, 2], resident
@@ -213,10 +165,7 @@ def main(argv=None) -> None:
                           args.out, tag, args.top)
         del cache
 
-        images, depths, normals = synthetic.render_scene(cams, planes)
-        tcams = geometry.make_cameras(
-            np.stack([c.K for c in cams]), np.stack([c.R for c in cams]),
-            np.stack([c.t for c in cams]), np.full(V, 1.2), np.full(V, 9.6), device="cuda")
+        images, depths, normals, tcams = flagship_scene(W, H, V, "cuda")
         vs, prior, cap, _ = flagship_state(images, depths, normals, tcams)
         flagship_pass(tcams, vs, prior, cap, 0)
         _profile_pass(lambda: flagship_pass(tcams, vs, prior, cap, 1), args.out,

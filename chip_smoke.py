@@ -84,7 +84,9 @@ and no ``ok`` line is printed:
    version and library yardstick (index_select, 5-D grid_sample) in device
    time (20 calls replayed from a CUDA graph), and the kernel's wrapper
    per call.
-6. flagship pass: bench.py's program through the port, a REFINE_ITER pass
+6. flagship pass: bench.py's program through the port
+   (``apdmvs_tpu_torch.bench``'s flagship state and pass, the one
+   definition of it), a REFINE_ITER pass
    with geometric consistency and the APD weak machinery at 640x480x5
    (prior from the ground truth, a 19200-pixel weak box, worklist 24576,
    ransac threshold 0.00875): wall ms of 5 passes after a warm-up, the
@@ -98,7 +100,22 @@ and no ``ok`` line is printed:
    view 0. Checks: per-view median relative depth error < 0.01 on interior
    pixels, < 0.02 on view 0's textureless core, > 1000 fused points and
    median point-to-plane distance < 0.05. H3 and the one-view H2 and H4
-   wrappers must not have launched.
+   wrappers must not have launched. The outputs stay for phase 8.
+8. fusion: the four variants of ``scene.run_fusion`` (eth, eth-device,
+   tat_intermediate, tat_advanced) on phase 7's outputs, each timed twice
+   with the host clock (views loaded, fused, PLY written); every cloud's
+   median point-to-plane distance < 0.01, and eth-device's point count
+   within 1 % of eth's (the JAX package's bounds,
+   tests/test_fusion_device.py). A variant that raises fails the run.
+9. quality: the four scene families of ``apdmvs_tpu_torch.quality_table``
+   (multiround, occlusion, curved, ring) through ``scene.run_scene`` on the
+   card, each row (points, accuracy, completeness, F1 at 0.05) printed
+   beside the JAX package's round-4 F1 on a TPU (BASELINE.md) and held to
+   the JAX package's floors (tests/test_quality.py); H1, H2 and H4 must
+   launch on every family, H5 and H6 on multiround.
+10. bench: ``apdmvs_tpu_torch.bench``'s measurement (depth-maps/s of the
+   flagship pass with amortized volume builds, median of 5), its JSON line
+   printed.
 
 Then it prints the ``kernels`` JSON line (launches: H1, H2 and H4 from
 phase 3, H5-H6 from phase 7, H3, H7 and H8 from phase 5; times in device
@@ -786,6 +803,17 @@ def h3_h8_edges(dev, E, D, base_k):
     torch.cuda.empty_cache()
 
 
+def _median_plane_distance(coords, planes):
+    """Median distance of the points to the nearest of the scene's planes
+    (inf for no points)."""
+    import numpy as np
+
+    dist = np.full(coords.shape[0], np.inf)
+    for pl in planes:
+        dist = np.minimum(dist, np.abs((coords.astype(np.float64) - pl.p0) @ pl.n))
+    return float(np.median(dist)) if len(coords) else float("inf")
+
+
 def phase_main_path(dev, inputs):
     import numpy as np
     import torch
@@ -838,10 +866,7 @@ def phase_main_path(dev, inputs):
         if not max(errs) < 0.01:
             raise AssertionError("depth error above 0.01")
         coords, _ = formats.read_point_cloud(run.ply)
-        dist = np.full(coords.shape[0], np.inf)
-        for pl in planes_s:
-            dist = np.minimum(dist, np.abs((coords.astype(np.float64) - pl.p0) @ pl.n))
-        med = float(np.median(dist)) if len(coords) else float("inf")
+        med = _median_plane_distance(coords, planes_s)
         log(f"main path: fused {len(coords)} points (tol > 1000), median plane distance "
             f"{med:.5f} (tol < 0.05)")
         if not (len(coords) > 1000 and med < 0.05 and np.isfinite(coords).all()):
@@ -853,13 +878,11 @@ def phase_main_path(dev, inputs):
 
 def flagship_state(dev, inputs):
     """Volumes, prior and worklist capacity of bench.py's flagship pass
-    (``trace_pass.flagship_state``), with their build times."""
-    import torch
-
-    from apdmvs_tpu_torch import trace_pass
+    (``apdmvs_tpu_torch.bench.flagship_state``), with their build times."""
+    from apdmvs_tpu_torch import bench
 
     _, _, images, depths, normals, cams = inputs
-    vs, prior, cap, build_ms = trace_pass.flagship_state(images, depths, normals, cams, K)
+    vs, prior, cap, build_ms = bench.flagship_state(images, depths, normals, cams, K)
     log(f"flagship: image volumes (E, C36, C9) built in {build_ms[0]:.1f} ms, depth volumes "
         f"in {build_ms[1]:.1f} ms")
     return vs, prior, cap
@@ -1439,17 +1462,18 @@ def _depth_errors(depth, gt, mask):
 
 
 def phase_flagship(dev, inputs, flag):
-    """bench.py's program through the port: one warm-up, then 5 timed passes."""
+    """bench.py's program through the port (``apdmvs_tpu_torch.bench``'s
+    flagship pass): one warm-up, then 5 timed passes."""
     import numpy as np
     import torch
 
-    from apdmvs_tpu_torch import trace_pass
+    from apdmvs_tpu_torch import bench
 
     depths = inputs[3]
     vs, prior, cap = flag
 
     def run(seed):
-        return trace_pass.flagship_pass(inputs[-1], vs, prior, cap, seed)
+        return bench.flagship_pass(inputs[-1], vs, prior, cap, seed)
 
     run(0)
     torch.cuda.synchronize()
@@ -1495,10 +1519,12 @@ def _erode(mask, r):
     return out
 
 
-def phase_two_rounds(dev):
+def phase_two_rounds(dev, folder):
     """A 1280x960 five-view scene with a textureless window (focal 1600: the
-    field of view of the reference package's weak-path test scene) through
-    ``scene.run_scene``: two rounds, the second with the APD weak machinery."""
+    field of view of the reference package's weak-path test scene) written to
+    ``folder`` and run through ``scene.run_scene``: two rounds, the second
+    with the APD weak machinery. Leaves its outputs in ``folder`` for the
+    fusion phase; returns the launches and the scene's planes."""
     import numpy as np
     import torch
 
@@ -1530,74 +1556,168 @@ def phase_two_rounds(dev):
     del vs, imgs
     torch.cuda.empty_cache()
 
-    folder = os.path.join(ROOT, "_smoke_scene_2r")
     shutil.rmtree(folder, ignore_errors=True)
-    try:
-        synthetic.write_mvsnet_dataset(folder, cams_s, planes_s, depth_ranges=(2.0, 8.0),
-                                       images=images)
-        counters = _counters()
-        for fn in counters.values():
-            fn.launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        run = scene.run_scene(folder, device="cuda", verbose=False)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in counters.items()}
-        per_pass = {}
-        for spec, problem, stats in run.passes:
-            per_pass.setdefault((spec.round_index, spec.pass_index, spec.state.name),
-                                []).append(stats)
-        for (r, p, state), st in per_pass.items():
-            log(f"two rounds: round {r} pass {p} {state}: "
-                + ", ".join(f"{s.seconds * 1e3:.1f}" for s in st) + " ms per view; weak in "
-                + ", ".join(str(s.weak_in) for s in st))
-        log(f"two rounds: {len(run.passes)} view-passes + fusion in {wall:.2f} s, peak device "
-            f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
-            + json.dumps(launches))
-        missing = [n for n in TWO_ROUND_KERNELS if launches[n] == 0]
-        if missing:
-            raise AssertionError(f"kernels not launched on the two-round scene: {missing}")
-        stray = [n for n in NOT_ON_MAIN_PATH if launches[n] != 0]
-        if stray:
-            raise AssertionError(f"the two-round scene launched {stray}")
-        weak_in = next(st for spec, problem, st in run.passes
-                       if spec.round_index == 1 and spec.state.name == "REFINE_INIT"
-                       and problem.ref_image_id == 0).weak_in
-        log(f"two rounds: {weak_in} weak pixels enter round 1's REFINE_INIT pass of view 0 "
-            "(tol > 1000)")
-        if not weak_in > 1000:
-            raise AssertionError("too few weak pixels enter round 1")
+    synthetic.write_mvsnet_dataset(folder, cams_s, planes_s, depth_ranges=(2.0, 8.0),
+                                   images=images)
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = scene.run_scene(folder, device="cuda", verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    per_pass = {}
+    for spec, problem, stats in run.passes:
+        per_pass.setdefault((spec.round_index, spec.pass_index, spec.state.name),
+                            []).append(stats)
+    for (r, p, state), st in per_pass.items():
+        log(f"two rounds: round {r} pass {p} {state}: "
+            + ", ".join(f"{s.seconds * 1e3:.1f}" for s in st) + " ms per view; weak in "
+            + ", ".join(str(s.weak_in) for s in st))
+    log(f"two rounds: {len(run.passes)} view-passes + fusion in {wall:.2f} s, peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+        + json.dumps(launches))
+    missing = [n for n in TWO_ROUND_KERNELS if launches[n] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the two-round scene: {missing}")
+    stray = [n for n in NOT_ON_MAIN_PATH if launches[n] != 0]
+    if stray:
+        raise AssertionError(f"the two-round scene launched {stray}")
+    weak_in = next(st for spec, problem, st in run.passes
+                   if spec.round_index == 1 and spec.state.name == "REFINE_INIT"
+                   and problem.ref_image_id == 0).weak_in
+    log(f"two rounds: {weak_in} weak pixels enter round 1's REFINE_INIT pass of view 0 "
+        "(tol > 1000)")
+    if not weak_in > 1000:
+        raise AssertionError("too few weak pixels enter round 1")
 
-        errs, d0 = [], None
-        interior = np.zeros((H2, W2), bool)
-        interior[10:-10, 10:-10] = True
-        for v in range(V):
-            d = formats.read_bin_mat(os.path.join(folder, "APD", formats.to_format_index(v),
-                                                  "depths.dmb"))
-            if d.shape != (H2, W2) or not np.isfinite(d).all():
-                raise AssertionError(f"view {v}: depth map {d.shape} not finite/expected shape")
-            errs.append(_depth_errors(d, depths[v], interior))
-            d0 = d if v == 0 else d0
-        flat_core = _erode(np.abs(images[0] - 128.0) < 1e-3, 8)
-        e_flat = _depth_errors(d0, depths[0], flat_core)
-        log("two rounds: median relative depth error per view "
-            + ", ".join(f"{e:.5f}" for e in errs) + f" (tol < 0.01 each); view 0 flat core "
-            f"({int(flat_core.sum())} px) {e_flat:.5f} (tol < 0.02)")
-        if not (max(errs) < 0.01 and e_flat < 0.02):
-            raise AssertionError("two-round scene fails its depth checks")
-        coords, _ = formats.read_point_cloud(run.ply)
-        dist = np.full(coords.shape[0], np.inf)
-        for pl in planes_s:
-            dist = np.minimum(dist, np.abs((coords.astype(np.float64) - pl.p0) @ pl.n))
-        med = float(np.median(dist)) if len(coords) else float("inf")
-        log(f"two rounds: fused {len(coords)} points (tol > 1000), median plane distance "
-            f"{med:.5f} (tol < 0.05)")
-        if not (len(coords) > 1000 and med < 0.05 and np.isfinite(coords).all()):
-            raise AssertionError("fused cloud fails the thresholds")
-        return launches
+    errs, d0 = [], None
+    interior = np.zeros((H2, W2), bool)
+    interior[10:-10, 10:-10] = True
+    for v in range(V):
+        d = formats.read_bin_mat(os.path.join(folder, "APD", formats.to_format_index(v),
+                                              "depths.dmb"))
+        if d.shape != (H2, W2) or not np.isfinite(d).all():
+            raise AssertionError(f"view {v}: depth map {d.shape} not finite/expected shape")
+        errs.append(_depth_errors(d, depths[v], interior))
+        d0 = d if v == 0 else d0
+    flat_core = _erode(np.abs(images[0] - 128.0) < 1e-3, 8)
+    e_flat = _depth_errors(d0, depths[0], flat_core)
+    log("two rounds: median relative depth error per view "
+        + ", ".join(f"{e:.5f}" for e in errs) + f" (tol < 0.01 each); view 0 flat core "
+        f"({int(flat_core.sum())} px) {e_flat:.5f} (tol < 0.02)")
+    if not (max(errs) < 0.01 and e_flat < 0.02):
+        raise AssertionError("two-round scene fails its depth checks")
+    coords, _ = formats.read_point_cloud(run.ply)
+    med = _median_plane_distance(coords, planes_s)
+    log(f"two rounds: fused {len(coords)} points (tol > 1000), median plane distance "
+        f"{med:.5f} (tol < 0.05)")
+    if not (len(coords) > 1000 and med < 0.05 and np.isfinite(coords).all()):
+        raise AssertionError("fused cloud fails the thresholds")
+    return launches, planes_s
+
+
+def phase_quality(dev):
+    """The four scene families of ``apdmvs_tpu_torch.quality_table`` on the
+    card: each row beside the JAX package's round-4 F1 on a TPU, held to the
+    JAX package's floors (tests/test_quality.py); H1, H2 and H4 must launch
+    on every family, H5 and H6 on multiround (two rounds)."""
+    from apdmvs_tpu_torch import quality_table as qt
+    from apdmvs_tpu_torch.bench import device_name
+
+    root = os.path.join(ROOT, "_smoke_quality")
+    counters = _counters()
+    rows, failed = [], []
+    try:
+        for fam in qt.FAMILIES:
+            for fn in counters.values():
+                fn.launches = 0
+            row = qt.run_family(fam, root, dev)
+            launches = {name: fn.launches for name, fn in counters.items()}
+            rows.append(row)
+            floors = qt.FLOORS[fam]
+            log(f"quality {fam}: {row['points']} points, accuracy {row['accuracy']:.4f}, "
+                f"completeness {row['completeness']:.4f}, F1 {row['f1']:.4f} (round 4, JAX "
+                f"package on a TPU: {row['round4_f1']}; F1 - round 4 "
+                f"{row['f1'] - row['round4_f1']:+.4f}) in {row['seconds']:.2f} s; floors: "
+                f"points > {floors[0]}, accuracy > {floors[1]}, F1 > {floors[2]}; launches "
+                + json.dumps({n: launches[n] for n in TWO_ROUND_KERNELS}))
+            need = TWO_ROUND_KERNELS if fam == "multiround" else ONE_ROUND_KERNELS
+            missing = [n for n in need if launches[n] == 0]
+            if missing:
+                failed.append(f"{fam}: kernels not launched {missing}")
+            below = qt.below_floors(row)
+            if below:
+                failed.append(f"{fam}: below the floors {below}")
     finally:
-        shutil.rmtree(folder, ignore_errors=True)
+        shutil.rmtree(root, ignore_errors=True)
+    for ln in qt.markdown(rows, device_name(dev)).splitlines():
+        log(f"quality: {ln}")
+    if failed:
+        raise AssertionError("quality phase: " + "; ".join(failed))
+    return rows
+
+
+def phase_fusion(dev, folder, planes):
+    """The four fusion variants through ``scene.run_fusion`` on the outputs
+    the two-round phase left in ``folder``: each timed twice with the host
+    clock (after a device synchronise, ending in one), loading the views
+    included (the load alone is timed too); ``eth-device`` is held to
+    ``eth``'s point count within 1 % and, as every variant, to a median
+    distance to the scene's planes below 0.01 (the JAX package's bounds,
+    tests/test_fusion_device.py)."""
+    import numpy as np
+    import torch
+
+    from apdmvs_tpu_torch import scene
+    from apdmvs_tpu_torch.io import formats
+
+    problems = scene.generate_sample_list(folder)
+    t0 = time.perf_counter()
+    scene._load_fusion_views(folder, problems)
+    log(f"fusion: loading the {len(problems)} views' outputs takes "
+        f"{1e3 * (time.perf_counter() - t0):.1f} ms")
+    points = {}
+    for variant in scene.FUSION_VARIANTS:
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ply = scene.run_fusion(folder, problems, variant, out_name=f"fused_{variant}.ply",
+                                   device=dev)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        coords, colors = formats.read_point_cloud(ply)
+        med = _median_plane_distance(coords, planes)
+        points[variant] = len(coords)
+        log(f"fusion {variant}: {len(coords)} points, median plane distance {med:.5f} "
+            f"(tol < 0.01), " + ", ".join(f"{w:.1f}" for w in walls) + " ms (views loaded "
+            "and fused, PLY written)")
+        if not (len(coords) > 1000 and med < 0.01 and np.isfinite(coords).all()
+                and colors.shape == coords.shape):
+            raise AssertionError(f"fusion {variant} fails its checks")
+    rel = abs(points["eth-device"] - points["eth"]) / points["eth"]
+    log(f"fusion: eth-device {points['eth-device']} points against eth {points['eth']}, "
+        f"relative difference {rel:.5f} (tol < 0.01)")
+    if not rel < 0.01:
+        raise AssertionError("eth-device disagrees with eth on the point count")
+    return points
+
+
+def phase_bench(dev):
+    """``python -m apdmvs_tpu_torch.bench``'s measurement (its defaults:
+    640x480x5, 5 repeats); its JSON line is printed."""
+    import torch
+
+    from apdmvs_tpu_torch import bench
+
+    row, out = bench.measure(device=dev)
+    if not (row["value"] > 0 and bool(torch.isfinite(out.depth).all())):
+        raise AssertionError(f"bench gives {row['value']} depth-maps/s or non-finite depths")
+    print(json.dumps(row), flush=True)
+    return row
 
 
 def main() -> int:
@@ -1625,7 +1745,15 @@ def main() -> int:
     phase_flagship(dev, inputs, flag)
     del flag, worklist
     torch.cuda.empty_cache()
-    launches_2r = phase_two_rounds(dev)
+    folder_2r = os.path.join(ROOT, "_smoke_scene_2r")
+    try:
+        launches_2r, planes_2r = phase_two_rounds(dev, folder_2r)
+        phase_fusion(dev, folder_2r, planes_2r)
+    finally:
+        shutil.rmtree(folder_2r, ignore_errors=True)
+    torch.cuda.empty_cache()
+    phase_quality(dev)
+    phase_bench(dev)
     # each kernel's launches on its slice's main path: H1, H2 and H4 (both
     # wrappers of each) on the one-round 640x480 scene, H5-H6 on the two-round
     # 1280x960 scene, H3, H7, H8 in the ops phase

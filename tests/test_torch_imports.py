@@ -39,7 +39,8 @@ def test_port_has_modules():
                 "filters", "classify", "pipeline", "fusion", "scene", "convert", "__main__",
                 "weak", "ops/volume", "ops/ncc_volume", "ops/cols", "ops/cost_volume",
                 "ops/_build", "io/formats", "io/images",
-                "io/render", "datasets/synthetic", "native/__init__"):
+                "io/render", "datasets/synthetic", "native/__init__", "eval",
+                "fusion_device", "bench", "quality_table", "datasets/colmap"):
         assert f"apdmvs_tpu_torch/{mod}.py" in rel, mod
 
 
