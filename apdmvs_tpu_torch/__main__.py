@@ -1,6 +1,9 @@
-"""CLI: ``python -m apdmvs_tpu_torch <dense_folder> [--device cpu]`` — the
-reference's ``./APD <dense_folder>`` (main.cpp:140-153). Runs on the CUDA
-card unless ``--device cpu`` is given; with no card it fails."""
+"""CLI: ``python -m apdmvs_tpu_torch <dense_folder> [--device cpu]
+[--batched] [--no-volumes]`` — the reference's ``./APD <dense_folder>``
+(main.cpp:140-153). Runs on the CUDA card unless ``--device cpu`` is given;
+with no card it fails. ``--batched`` runs every view of a pass as one batch
+(``scene.run_scene_batched``), ``--no-volumes`` the direct-warp path; they
+combine as in ``apdmvs_tpu/__main__.py:134-160``."""
 
 from __future__ import annotations
 
@@ -39,10 +42,16 @@ def main(argv=None) -> None:
                     help="device byte budget for the per-(problem, scale) image volumes")
     ap.add_argument("--num-slices", type=int, default=160,
                     help="inverse-depth slices of the plane-sweep volumes")
+    ap.add_argument("--no-volumes", action="store_true",
+                    help="run the direct-warp path: no plane-sweep volume is built and no "
+                    "kernel of csrc/ runs (default: volumes on every device)")
+    ap.add_argument("--batched", action="store_true",
+                    help="run all views of each pass as one batch on the device "
+                    "(scene.run_scene_batched; geometric passes read the previous pass's "
+                    "depths)")
     args = ap.parse_args(argv)
 
-    scene.run_scene(
-        args.dense_folder,
+    common = dict(
         seed=args.seed,
         device=args.device,
         fusion_variant=args.fusion,
@@ -51,10 +60,17 @@ def main(argv=None) -> None:
         max_rounds=args.max_rounds,
         min_rounds=args.min_rounds,
         camera_model=args.camera_model,
-        allow_missing_prior=args.allow_missing_prior,
         volume_cache_gb=args.volume_cache_gb,
         num_slices=args.num_slices,
+        use_volumes=not args.no_volumes,
     )
+    if args.batched:
+        if args.allow_missing_prior:
+            ap.error("--allow-missing-prior applies to the sequential runner only")
+        scene.run_scene_batched(args.dense_folder, **common)
+    else:
+        scene.run_scene(args.dense_folder, allow_missing_prior=args.allow_missing_prior,
+                        **common)
 
 
 if __name__ == "__main__":

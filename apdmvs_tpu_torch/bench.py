@@ -23,9 +23,23 @@ in a device synchronise.
 This module is the one definition of the flagship pass:
 ``trace_pass`` and ``chip_smoke.py`` take its state and pass from here.
 
+``--batched-problems N`` (default 4, as ``bench.py:72-78``; 0 disables)
+also times the batched runner's volume path
+(``parallel.sharded._volume_batched_pass``) on N copies of the flagship
+problem, its image-volume sets pinned within 6 GB as ``run_scene_batched``
+pins them (at 640x480x5, 1.71 GB a set: 2 of 4) and the rest built in the
+loop every pass, each problem's depth volumes from the ground truth as the
+flagship's:
+
+  batched_maps_per_sec = N / (median batch pass + pinned-set build / 4)
+
+The primary ``value`` and its definition do not change.
+
 Prints exactly one JSON line on stdout:
   {"metric": "depth_maps_per_sec", "value", "unit", "min", "spread_pct",
-   "pass_ms", "image_build_ms", "depth_build_ms", "device"}
+   "pass_ms", "image_build_ms", "depth_build_ms", "device"}, with
+  "batched_maps_per_sec", "batched_problems", "batched_pinned",
+  "batched_ms" and "batched_prebuild_ms" added when N > 0,
 where ``device`` names the card and its power limit. On a card a
 speed-of-light line goes to stderr: the NCC sample count one pass needs
 against the card's float32 rate outside the tensor cores.
@@ -42,7 +56,7 @@ import time
 import numpy as np
 import torch
 
-from apdmvs_tpu_torch import geometry, ncc, pipeline, rng, scene
+from apdmvs_tpu_torch import geometry, ncc, parallel, pipeline, rng, scene
 from apdmvs_tpu_torch.datasets import synthetic
 from apdmvs_tpu_torch.params import PassConfig, PixelState, RunState
 
@@ -110,17 +124,26 @@ def flagship_state(images, depths, normals, cams, num_slices: int = 160):
     vs = ncc.add_depth_volumes(vs, torch.as_tensor(depths, device=dev), cams, DMIN, DMAX)
     _sync(dev)
     t2 = time.perf_counter()
-    ps = torch.full((H_, W_), int(PixelState.STRONG), dtype=torch.uint8, device=dev)
+    prior, cap = flagship_prior(depths, normals, V_, dev)
+    return vs, prior, cap, (1e3 * (t1 - t0), 1e3 * (t2 - t1))
+
+
+def flagship_prior(depths, normals, views: int, device):
+    """The flagship pass's prior (ground truth, WEAK box rows H/2 +- H/8
+    and cols W/2 +- W/8) and worklist capacity."""
+    H_, W_ = depths.shape[1:]
+    ps = torch.full((H_, W_), int(PixelState.STRONG), dtype=torch.uint8, device=device)
     ps[H_ // 2 - H_ // 8:H_ // 2 + H_ // 8, W_ // 2 - W_ // 8:W_ // 2 + W_ // 8] = int(
         PixelState.WEAK)
     cap = scene._bucket_capacity(int((ps == PixelState.WEAK).sum()), H_ * W_)
     prior = pipeline.PassState(
-        depth=torch.as_tensor(depths[0], device=dev),
-        normal_world=torch.as_tensor(normals[0], device=dev),
+        depth=torch.as_tensor(depths[0], device=device),
+        normal_world=torch.as_tensor(normals[0], device=device),
         pixel_state=ps,
-        selected=(torch.arange(V_, device=dev) > 0)[:, None, None].expand(V_, H_, W_).contiguous(),
+        selected=(torch.arange(views, device=device) > 0)[:, None, None].expand(
+            views, H_, W_).contiguous(),
     )
-    return vs, prior, cap, (1e3 * (t1 - t0), 1e3 * (t2 - t1))
+    return prior, cap
 
 
 def flagship_pass(cams, vs, prior, cap, seed: int) -> pipeline.PassOutputs:
@@ -130,6 +153,59 @@ def flagship_pass(cams, vs, prior, cap, seed: int) -> pipeline.PassOutputs:
     return pipeline.patchmatch_pass(cams, sv, prior, rng.TorchDraws(seed, H_, W_, cams.device),
                                     FLAGSHIP_CFG, vs, weak_capacity=cap,
                                     ransac_threshold=FLAGSHIP_RTH)
+
+
+def measure_batched(images, depths, normals, cams, n: int, repeats: int,
+                    budget_gb: float = 6.0, num_slices: int = 160) -> dict:
+    """The batched row: N copies of the flagship problem through the
+    volume path's batch body, the pinned sets built (and timed) once after
+    a warm-up build, the batch pass timed ``repeats`` times after one
+    warm-up, each interval ending in a device synchronise."""
+    dev = cams.device
+    V_, H_, W_ = images.shape
+    prior, cap = flagship_prior(depths, normals, V_, dev)
+    imgs_b = torch.as_tensor(images, device=dev)[None].expand(n, V_, H_, W_)
+    cams_b = geometry.Cameras(*(f[None].expand((n,) + tuple(f.shape)) for f in cams))
+    prior_b = pipeline.PassState(*(f[None].expand((n,) + tuple(f.shape)) for f in prior))
+    sv_b = (torch.arange(V_, device=dev) > 0)[None].expand(n, V_)
+    src_index = np.tile(np.arange(V_), (n, 1))  # every copy reads the ground truth
+    set_bytes = ncc.image_volume_set_nbytes(V_, H_, W_, num_slices, weak_cost_volumes=True)
+    M = parallel.pinned_count(set_bytes, n, budget_gb * 1e9)
+
+    def prebuild():
+        if M == 0:
+            return None
+        out = parallel.build_batch_image_volumes(
+            imgs_b[:M], geometry.Cameras(*(f[:M] for f in cams_b)), num_slices)
+        _sync(dev)
+        return out
+
+    prebuild()
+    _sync(dev)
+    t0 = time.perf_counter()
+    pinned = prebuild()
+    prebuild_ms = 1e3 * (time.perf_counter() - t0)
+    depths_t = torch.as_tensor(depths, device=dev)
+
+    def batch(seed0):
+        draws = [rng.TorchDraws(seed0 + i, H_, W_, dev) for i in range(n)]
+        return parallel.sharded_batch_pass(
+            imgs_b, cams_b, sv_b, prior_b, draws, np.full(n, FLAGSHIP_RTH), FLAGSHIP_CFG,
+            weak_capacity=cap, all_depths=depths_t, src_index=src_index, use_volumes=True,
+            num_slices=num_slices, prebuilt=pinned)
+
+    batch(0)
+    times = []
+    for rep in range(repeats):
+        _sync(dev)
+        t0 = time.perf_counter()
+        batch((rep + 1) * n)
+        _sync(dev)
+        times.append(1e3 * (time.perf_counter() - t0))
+    batched_ms = float(np.median(times))
+    return {"batched_maps_per_sec": 1e3 * n / (batched_ms + prebuild_ms / 4.0),
+            "batched_problems": n, "batched_pinned": M, "batched_ms": batched_ms,
+            "batched_prebuild_ms": prebuild_ms}
 
 
 def device_name(device) -> str:
@@ -147,7 +223,7 @@ def device_name(device) -> str:
 
 
 def measure(width: int = 640, height: int = 480, views: int = 5, repeats: int = 5,
-            device="cuda"):
+            device="cuda", batched_problems: int = 4):
     """The benchmark's row (see the module docstring) and the last timed
     pass's outputs."""
     dev = scene.resolve_device(device)
@@ -177,6 +253,8 @@ def measure(width: int = 640, height: int = 480, views: int = 5, repeats: int = 
         "depth_build_ms": depth_build_ms,
         "device": device_name(dev),
     }
+    if batched_problems > 0:
+        row.update(measure_batched(images, depths, normals, cams, batched_problems, repeats))
     return row, out
 
 
@@ -189,12 +267,21 @@ def main(argv=None) -> None:
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; with no card it fails)")
+    ap.add_argument("--batched-problems", type=int, default=4,
+                    help="also time the batched runner's volume path on this many copies of "
+                    "the flagship problem (batched_maps_per_sec); 0 disables")
     args = ap.parse_args(argv)
-    row, _ = measure(args.width, args.height, args.views, args.repeats, args.device)
+    row, _ = measure(args.width, args.height, args.views, args.repeats, args.device,
+                     args.batched_problems)
     amortized_ms = row["image_build_ms"] / 4.0 + row["depth_build_ms"] + row["pass_ms"]
     print(f"pass {row['pass_ms']:.3f} ms + image-volume build {row['image_build_ms']:.3f} ms/4"
           f" + depth-volume build {row['depth_build_ms']:.3f} ms"
           f" => amortized {amortized_ms:.3f} ms/pass on {row['device']}", file=sys.stderr)
+    if args.batched_problems > 0:
+        print(f"batched: {row['batched_problems']} problems, {row['batched_pinned']} sets pinned "
+              f"(built in {row['batched_prebuild_ms']:.3f} ms, charged / 4), batch pass "
+              f"{row['batched_ms']:.3f} ms => {row['batched_maps_per_sec']:.4f} depth-maps/s",
+              file=sys.stderr)
     if torch.device(args.device).type == "cuda":
         samples = required_ncc_samples(args.height, args.width, args.views,
                                        FLAGSHIP_CFG.max_iterations, 0.0625)

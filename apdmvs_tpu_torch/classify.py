@@ -7,10 +7,13 @@ PyTorch counterpart of ``apdmvs_tpu/classify.py``:
 - LocalRefine (APD.cu:2146-2232): +-5 disparity polish of the depth,
   accepted when the cost improves by > 0.1.
 
-The sweeps are evaluated in chunks of SWEEP_CHUNK candidates; each chunk's
-NCC term is one H2 launch over E (the reference rebases the volumes on the
-chunk's mid step first, which changes no cost), its geometric term goes
-through the depth volumes.
+The sweeps are evaluated in chunks of SWEEP_CHUNK candidates through
+``ncc.cost_vector`` and ``ncc.geom_cost_vector``. On the volume path each
+chunk's NCC term is one H2 launch over E (the reference rebases the
+volumes on the chunk's mid step first, which changes no cost) and its
+geometric term one H4 launch over the depth volumes. Without volumes both
+terms warp directly, every source view at once (the reference package's
+sweep with ``use_sweep`` false, ``apdmvs_tpu/classify.py:104-138``).
 """
 
 from __future__ import annotations

@@ -174,6 +174,28 @@ def warp_constants(cams: Cameras) -> WarpConstants:
     )
 
 
+def backproject_world(x, y, depth, K, R, c) -> torch.Tensor:
+    """Pixel + depth -> world point X = R^T (depth * dir) + c
+    (Get3DPointonWorld_cu, APD.cu:718-738). K, R: [3, 3] or batched
+    [..., 3, 3] broadcasting against the pixels."""
+    dx = (x - K[..., 0, 2]) / K[..., 0, 0]
+    dy = (y - K[..., 1, 2]) / K[..., 1, 1]
+    X_cam = depth[..., None] * torch.stack([dx, dy, torch.ones_like(dx)], dim=-1)
+    return mat3_t_vec(R, X_cam) + c
+
+
+def project_camera(X, K, R, t):
+    """World point -> (px, py, depth) through full K rows
+    (ProjectonCamera_cu, APD.cu:740-750). Batched cameras broadcast as in
+    :func:`backproject_world`."""
+    x_cam = mat3_vec(R, X) + t
+    x0, x1, x2 = x_cam[..., 0], x_cam[..., 1], x_cam[..., 2]
+    depth = K[..., 2, 0] * x0 + K[..., 2, 1] * x1 + K[..., 2, 2] * x2
+    px = (K[..., 0, 0] * x0 + K[..., 0, 1] * x1 + K[..., 0, 2] * x2) / depth
+    py = (K[..., 1, 0] * x0 + K[..., 1, 1] * x1 + K[..., 1, 2] * x2) / depth
+    return px, py, depth
+
+
 def normal_cam_to_world(R, n):
     """R^T n (APD.cu:374-382)."""
     return mat3_t_vec(R, n)

@@ -1,16 +1,30 @@
-"""Multi-view NCC cost evaluation over plane-sweep volumes — the hot path.
+"""Multi-view NCC cost evaluation — the hot path.
 
-PyTorch counterpart of the volume path of ``apdmvs_tpu/ncc.py``
-(reference: ComputeBilateralNCCOld APD.cu:530-614, cost vectors
-APD.cu:696-716, initial cost + top-k view seeding APD.cu:616-693, geometric
-consistency APD.cu:752-789). Every grid evaluation goes through the volume
-kernels of ``ops/``: the exact NCC (H2, every source view in one launch, read
-from E alone) and the geometric cost (H4, every source view in one launch). The reference package routes its
-NCC evaluations through rebased volumes, banded and full-K kernels
-(``apdmvs_tpu/ncc.py``); they all compute the one function that H2 computes
-from E, so the port has one NCC evaluator and builds no rebased volume. The
-direct-warp path, the point mode and the space-sharded volumes of the
-reference package are not ported.
+PyTorch counterpart of ``apdmvs_tpu/ncc.py`` (reference:
+ComputeBilateralNCCOld APD.cu:530-614, cost vectors APD.cu:696-716,
+initial cost + top-k view seeding APD.cu:616-693, geometric consistency
+APD.cu:752-789). Two paths evaluate the same costs:
+
+- the volume path (a context with ``volumes``): every grid evaluation goes
+  through the volume kernels of ``ops/``: the exact NCC (H2, every source
+  view in one launch, read from E alone) and the geometric cost (H4, every
+  source view in one launch). The reference package routes its NCC
+  evaluations through rebased volumes, banded and full-K kernels; they all
+  compute the one function that H2 computes from E, so the port has one
+  NCC evaluator and builds no rebased volume. Point-mode evaluations with
+  the standard windows read the cost volumes C36 / C9
+  (:func:`point_cost_volume`).
+- the direct-warp path (a context without volumes, ``--no-volumes``): the
+  homography warp of every window sample and a bilinear read of the
+  images, in plain PyTorch, as the reference package computes it outside
+  any Pallas kernel. All source views are evaluated in one tensor op per
+  window offset, and only five accumulators of the output's shape live
+  across the offsets. Grid mode reads the f32 images (the reference patch
+  from edge-padded shifted slices), point mode (worklists, anchors) their
+  bf16 copy, as the reference package does. The volume path never falls
+  back to it: a volume context carries no images.
+
+The space-sharded volumes of the reference package are not ported.
 
 Costs are "1 - NCC" clamped to [0, 2]; degenerate patches and out-of-view
 warps cost 2. Index v of every per-view result is camera v; entry 0 (the
@@ -24,12 +38,13 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from apdmvs_tpu_torch import geometry
+from apdmvs_tpu_torch import geometry, sampling
 from apdmvs_tpu_torch.geometry import Cameras, WarpConstants
 from apdmvs_tpu_torch.ops import cost_volume, ncc_volume, volume as vol
 
 COST_MAX = ncc_volume.COST_MAX
 GEOM_COST_MAX = ncc_volume.GEOM_COST_MAX
+MIN_VAR = 1e-5
 
 
 class VolumeSet(NamedTuple):
@@ -70,6 +85,11 @@ class CostContext(NamedTuple):
     src_valid: [V] bool — True for real source views; view 0 and padding
       views always cost COST_MAX (the reference's 2.0-initialised cost
       vectors, APD.cu:626-627).
+    volumes: the volume path's plane-sweep volumes, or None for the
+      direct-warp path, which reads ``images`` [V, H, W] f32 (index 0 = the
+      reference view), their bf16 copy ``images_bf16`` (point mode) and,
+      on geometric passes, ``depth_maps`` [V, H, W] (the source views'
+      depths; entry 0 unused).
     """
 
     cams: Cameras
@@ -78,7 +98,10 @@ class CostContext(NamedTuple):
     x: torch.Tensor  # [H, W]
     y: torch.Tensor  # [H, W]
     src_valid: torch.Tensor  # [V] bool
-    volumes: VolumeSet
+    volumes: Optional[VolumeSet] = None
+    images: Optional[torch.Tensor] = None
+    images_bf16: Optional[torch.Tensor] = None
+    depth_maps: Optional[torch.Tensor] = None
 
     @property
     def height(self) -> int:
@@ -94,16 +117,28 @@ class CostContext(NamedTuple):
 
 
 def make_context(cams: Cameras, src_valid, height: int, width: int,
-                 volumes: VolumeSet) -> CostContext:
-    x, y = geometry.pixel_grid(height, width, cams.device)
+                 volumes: Optional[VolumeSet] = None, images=None,
+                 depth_maps=None) -> CostContext:
+    """The pass's cost context: with ``volumes`` the volume path, without
+    them the direct-warp path over ``images`` (and ``depth_maps`` on
+    geometric passes)."""
+    dev = cams.device
+    x, y = geometry.pixel_grid(height, width, dev)
+    if images is not None:
+        images = torch.as_tensor(images, dtype=torch.float32, device=dev)
+    if depth_maps is not None:
+        depth_maps = torch.as_tensor(depth_maps, dtype=torch.float32, device=dev)
     return CostContext(
         cams=cams,
         wc=geometry.warp_constants(cams),
         dirs=geometry.pixel_dirs(cams.K[0], x, y),
         x=x,
         y=y,
-        src_valid=torch.as_tensor(src_valid, dtype=torch.bool, device=cams.device),
+        src_valid=torch.as_tensor(src_valid, dtype=torch.bool, device=dev),
         volumes=volumes,
+        images=images,
+        images_bf16=None if images is None else images.to(torch.bfloat16),
+        depth_maps=depth_maps,
     )
 
 
@@ -144,6 +179,18 @@ def build_image_volume_set(images: torch.Tensor, cams: Cameras, depth_min, depth
         C9 = torch.stack([cost_volume.build_cost_volume(E, ref_pad, 5, 5) for E in Es])
     return VolumeSet(E=torch.stack(Es), consts=torch.stack(consts), ref_pad=ref_pad,
                      C36=C36, C9=C9)
+
+
+def image_volume_set_nbytes(num_views: int, height: int, width: int, num_slices: int = 160,
+                            weak_cost_volumes: bool = True) -> int:
+    """Device bytes of the set :func:`build_image_volume_set` builds for V
+    views of H x W: E (and C36, C9) [V-1, K, PH, PW] bf16, consts and the
+    padded reference image."""
+    PH = _ceil_to(height, ncc_volume.NCC_TILE_H) + 2 * ncc_volume.PAD_Y
+    PW = _ceil_to(width, ncc_volume.TILE_W) + 2 * ncc_volume.PAD_X
+    volumes = 3 if weak_cost_volumes else 1
+    return (volumes * (num_views - 1) * num_slices * PH * PW * 2
+            + (num_views - 1) * 21 * 4 + PH * PW * 4)
 
 
 def add_depth_volumes(vs: VolumeSet, depth_maps: torch.Tensor, cams: Cameras,
@@ -201,13 +248,11 @@ def _pad_planes_cf(plane: torch.Tensor, Hp: int, Wp: int) -> torch.Tensor:
 
 
 def _grid_eval(ctx: CostContext, plane: torch.Tensor, evaluate, pad_value=COST_MAX):
-    """Shared harness: pad the plane fields onto the kernel grid, evaluate
-    every source view (``evaluate(planes_cf) -> [V-1, C, Hp, Wp]``), slice
-    back and put COST_MAX (``pad_value``) at view 0 and the invalid views:
-    [V, (C,) H, W]."""
+    """Shared harness of the volume path: pad the plane fields onto the
+    kernel grid, evaluate every source view (``evaluate(planes_cf) ->
+    [V-1, C, Hp, Wp]``), slice back and put COST_MAX (``pad_value``) at
+    view 0 and the invalid views: [V, (C,) H, W]."""
     vs = ctx.volumes
-    if vs is None:
-        raise ValueError("the port's cost path needs plane-sweep volumes")
     H, W = ctx.height, ctx.width
     Hp = vs.ref_pad.shape[0] - 2 * ncc_volume.PAD_Y
     Wp = vs.ref_pad.shape[1] - 2 * ncc_volume.PAD_X
@@ -215,33 +260,298 @@ def _grid_eval(ctx: CostContext, plane: torch.Tensor, evaluate, pad_value=COST_M
     if squeeze:
         plane = plane[None]
     outs = evaluate(_pad_planes_cf(plane, Hp, Wp))[:, :, :H, :W]
-    costs = torch.cat([torch.full_like(outs[0], pad_value)[None], outs])
-    shape = (ctx.num_views,) + (1,) * (costs.ndim - 1)
-    costs = torch.where(ctx.src_valid.reshape(shape), costs, pad_value)
+    costs = _with_ref_view(ctx, outs, pad_value)
     return costs[:, 0] if squeeze else costs
 
 
-def cost_vector(ctx: CostContext, plane: torch.Tensor, radius: int, increment: int):
-    """Per-view NCC costs [V, (C,) H, W] of plane fields [(C,) H, W, 4]
-    (ComputeMultiViewCostVectorOld, APD.cu:707-716): one H2 launch over all
-    source views. The reference package's rebased, full-K and sweep
-    evaluators (``cost_vector``, ``cost_vector_full``, ``sweep_cost_vector``
-    in ``apdmvs_tpu/ncc.py``) compute these same costs."""
-    vs = ctx.volumes
-    return _grid_eval(ctx, plane, lambda planes_cf: ncc_volume.ncc_cost_views(
-        vs.E, vs.ref_pad, planes_cf, vs.consts, vs.num_slices,
-        radius=radius, increment=increment))
+def _with_ref_view(ctx: CostContext, per_src: torch.Tensor, pad_value) -> torch.Tensor:
+    """[V-1, ...] source-view results -> [V, ...] with ``pad_value`` at view
+    0 and at the invalid views."""
+    out = torch.cat([torch.full_like(per_src[:1], pad_value), per_src])
+    shape = (ctx.num_views,) + (1,) * (out.dim() - 1)
+    return torch.where(ctx.src_valid.reshape(shape), out, pad_value)
 
 
-def geom_cost_vector(ctx: CostContext, plane: torch.Tensor):
-    """Per-view geometric-consistency costs [V, (C,) H, W]
-    (ComputeGeomConsistencyCost, APD.cu:752-789): one H4 launch over all
-    source views."""
+def _source_views(ctx: CostContext) -> torch.Tensor:
+    return torch.arange(1, ctx.num_views, device=ctx.x.device)
+
+
+# ---------------------------------------------------------------------------
+# The direct-warp path (no volumes): ``apdmvs_tpu/ncc.py:396-517, 520-573,
+# 661-687``. ``v`` is a 1-D tensor of view indices, the leading axis of
+# every result.
+# ---------------------------------------------------------------------------
+
+
+def _per_view(x: torch.Tensor, v: torch.Tensor, nd: int) -> torch.Tensor:
+    """Per-camera rows ``x[v]`` ([Vs, k] or [Vs, 3, 3]) shaped to broadcast
+    against ``nd`` position axes after the leading view axis."""
+    xv = x[v]
+    return xv.reshape((xv.shape[0],) + (1,) * nd + tuple(xv.shape[1:]))
+
+
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in the type the direct path takes multiply-adds in: float64 on
+    the CPU, where the product of two float32 is exact, so one rounding to
+    float32 gives the fused result the reference package's compiled code
+    computes (the plain path then agrees with it where the NCC is rounding
+    noise: constant patches); float32 on the card (one multiply-add
+    kernel)."""
+    return x.to(torch.float64 if x.device.type == "cpu" else torch.float32)
+
+
+def _fma(a, b, c) -> torch.Tensor:
+    """a * b + c rounded once to float32 (``a`` may be a number), taken in
+    the wide type; operands already wide are not converted again."""
+    if isinstance(a, (int, float)):
+        return torch.add(_wide(c), _wide(b), alpha=a).float()
+    return torch.addcmul(_wide(c), _wide(a), _wide(b)).float()
+
+
+def _warp_basis(ctx: CostContext, v: torch.Tensor, plane: torch.Tensor, dirs: torch.Tensor):
+    """Hp, He0, He1 homogeneous warp vectors [Vs, ..., 3] of ``plane`` at
+    pixels with directions ``dirs`` (geometry.py docstring identities),
+    their multiply-adds contracted as the reference package's compiled CPU
+    code contracts them (measured bit-equal on the CPU): the warp decides
+    the bilinear weights, and in a constant patch their rounding is the
+    whole NCC."""
+    n = plane[..., :3]
+    w = plane[..., 3]
+    ndir = _fma(n[..., 2], dirs[..., 2], _fma(n[..., 1], dirs[..., 1], n[..., 0] * dirs[..., 0]))
+    nd = ndir.dim()
+    Mv = _per_view(ctx.wc.M, v, nd)
+    bv = _per_view(ctx.wc.b, v, nd)
+    Md = torch.stack([_fma(Mv[..., r, 2], dirs[..., 2],
+                           _fma(Mv[..., r, 0], dirs[..., 0], Mv[..., r, 1] * dirs[..., 1]))
+                      for r in range(3)], dim=-1)
+    Hp = _fma(-bv, (ndir / w)[..., None], Md)
+    He0 = _fma(-bv, (n[..., 0] / w)[..., None], Mv[..., :, 0]) * ctx.wc.inv_fx
+    He1 = _fma(-bv, (n[..., 1] / w)[..., None], Mv[..., :, 1]) * ctx.wc.inv_fy
+    return Hp, He0, He1
+
+
+def _project(q: torch.Tensor):
+    return q[..., 0] / q[..., 2], q[..., 1] / q[..., 2]
+
+
+def _ncc_from_sums(s_r, s_rr, s_s, s_ss, s_rs, count: int) -> torch.Tensor:
+    """cost = clamp(1 - cov / sqrt(var_r var_s), 0, 2), rsqrt form;
+    degenerate patches -> COST_MAX (APD.cu:592-610). The moments round as
+    the volume path's (``ncc_volume.ncc_moments``)."""
+    inv = torch.tensor(1.0 / count, dtype=torch.float32, device=s_s.device)
+    mr = s_r * inv
+    ms = s_s * inv
+    var_r, var_s, cov = ncc_volume.ncc_moments(s_rr, s_ss, s_rs, mr, ms, inv)
+    cost = 1.0 - cov * torch.rsqrt(torch.clamp(var_r * var_s, min=1e-30))
+    cost = torch.clamp(cost, 0.0, COST_MAX)
+    return torch.where((var_r < MIN_VAR) | (var_s < MIN_VAR), COST_MAX, cost)
+
+
+def _bilinear_views(images_w: torch.Tensor, base, x: torch.Tensor, y: torch.Tensor,
+                    top_fuses_left: bool) -> torch.Tensor:
+    """``sampling.bilinear_sample`` of a stack of images [V, H, W] (held in
+    the wide type, :func:`_wide`), each sample from the image whose flat
+    offset ``base`` (a multiple of H * W, broadcasting against x and y)
+    names; f32 out. The three lerps are multiply-adds contracted as the
+    reference package's compiled CPU code contracts them; it fuses the left
+    product of the top row for bf16 images and the right one for f32
+    (``top_fuses_left``; measured bit-equal)."""
+    _, H, W = images_w.shape
+    x = torch.clamp(x, 0.0, W - 1.0)
+    y = torch.clamp(y, 0.0, H - 1.0)
+    x0f = torch.floor(x)
+    y0f = torch.floor(y)
+    wx = x - x0f
+    wy = y - y0f
+    x0 = torch.clamp(x0f.to(torch.int64), 0, W - 1)  # NaN converts out of range
+    x1 = torch.clamp(x0 + 1, max=W - 1)
+    y0 = torch.clamp(y0f.to(torch.int64), 0, H - 1)
+    r0 = y0 * W + base
+    r1 = torch.clamp(y0 + 1, max=H - 1) * W + base
+    v00, v01, v10, v11 = torch.take(images_w, torch.stack([r0 + x0, r0 + x1, r1 + x0, r1 + x1]))
+    omx = 1.0 - wx
+
+    def lerp(a, wa, b, wb):  # a * wa + b * wb, the product b * wb rounded first
+        return _fma(a, wa, (b * wb).float())
+
+    top = lerp(v00, omx, v01, wx) if top_fuses_left else lerp(v01, wx, v00, omx)
+    bot = lerp(v10, omx, v11, wx)
+    return lerp(top, 1.0 - wy, bot, wy)
+
+
+def _view_base(v: torch.Tensor, height: int, width: int, nd: int) -> torch.Tensor:
+    """Flat offset of each view's image, shaped like :func:`_per_view`."""
+    return (v * (height * width)).reshape((-1,) + (1,) * nd)
+
+
+def _require_images(ctx: CostContext):
+    if ctx.images is None:
+        raise ValueError("the direct-warp evaluators need the context's images "
+                         "(a volume-path context carries none)")
+
+
+def ncc_cost_view(ctx: CostContext, v: torch.Tensor, plane: torch.Tensor, radius: int,
+                  increment: int, xs: Optional[torch.Tensor] = None,
+                  ys: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain NCC costs [Vs, ...] of ``plane`` against the source views ``v``
+    (a 1-D tensor) by direct warping (ComputeBilateralNCCOld,
+    APD.cu:530-614); a patch centre that warps out of the source costs
+    COST_MAX.
+
+    Grid mode (``xs`` None): every pixel of the [H, W] grid, the reference
+    patch from static shifted slices of the edge-padded f32 reference image.
+    Point mode: at float coordinates (``xs``, ``ys``) of any shape, sampling
+    the bf16 images; ``plane`` may carry leading batch dims relative to the
+    coordinates ([C, N, 4] with xs [N], or [..., N, 1, 4] with xs [N, 8])
+    and the result has the broadcast shape. The window's offsets are a
+    Python loop holding five accumulators; the reference patch's sums do
+    not depend on the plane or the view and are taken once."""
+    _require_images(ctx)
+    offsets = sampling.patch_offsets(radius, increment).tolist()
+    H, W = ctx.height, ctx.width
+    grid = xs is None
+    if grid:
+        images = ctx.images
+        xs_, ys_, dirs = ctx.x, ctx.y, ctx.dirs
+        ref_padded = _edge_pad(images[0], radius, radius, radius, radius)
+    else:
+        images = ctx.images_bf16
+        xs_, ys_ = xs, ys
+        dirs = geometry.pixel_dirs(ctx.cams.K[0], xs, ys)
+    bf16 = images.dtype == torch.bfloat16
+    images_w = _wide(images)
+    Hp, He0, He1 = _warp_basis(ctx, v, plane, dirs)
+    cx, cy = _project(Hp)
+    center_oob = (cx < 0.0) | (cx >= W) | (cy < 0.0) | (cy >= H)
+    base = _view_base(v, H, W, cx.dim() - 1)
+    Hp, He0, He1 = _wide(Hp), _wide(He0), _wide(He1)  # loop-invariant
+
+    s_r = s_rr = s_s = s_ss = s_rs = None
+    for di, dj in offsets:
+        if grid:
+            ref_pix = ref_padded[dj + radius:dj + radius + H, di + radius:di + radius + W]
+        else:
+            ref_pix = _bilinear_views(images_w[:1], 0, xs_ + di, ys_ + dj, bf16)
+        sx, sy = _project(_fma(dj, He1, _fma(di, He0, Hp)))
+        src = _bilinear_views(images_w, base, sx, sy, bf16)
+        if s_s is None:
+            s_r, s_rr = ref_pix, ref_pix * ref_pix
+            s_s, s_ss, s_rs = src, src * src, ref_pix * src
+        else:
+            s_r = s_r + ref_pix
+            s_rr = _fma(ref_pix, ref_pix, s_rr)
+            s_s = s_s + src
+            s_ss = _fma(src, src, s_ss)
+            s_rs = _fma(ref_pix, src, s_rs)
+    cost = _ncc_from_sums(s_r.expand_as(s_s), s_rr.expand_as(s_s), s_s, s_ss, s_rs,
+                          len(offsets))
+    return torch.where(center_oob, COST_MAX, cost)
+
+
+def point_warp_oob(ctx: CostContext, v_consts: torch.Tensor, dirs: torch.Tensor,
+                   u: torch.Tensor) -> torch.Tensor:
+    """Analytic out-of-source-bounds test of a warped point from one view's
+    packed consts [21] (the texture-bounds checks, APD.cu:546-556)."""
+    M = v_consts[6:15].reshape(3, 3)
+    b = v_consts[15:18]
+    q = geometry.mat3_vec(M, dirs) + b * u[..., None]
+    px = q[..., 0] / q[..., 2]
+    py = q[..., 1] / q[..., 2]
+    return (px < 0.0) | (px >= v_consts[18]) | (py < 0.0) | (py >= v_consts[19])
+
+
+def point_cost_volume(ctx: CostContext, plane: torch.Tensor, xs: torch.Tensor,
+                      ys: torch.Tensor, which: str):
+    """Point-mode patch NCC through the cost volumes (``which``: 'C36' for
+    radius 5 step 2, 'C9' for radius 5 step 5; the fronto-parallel-at-centre
+    approximation of ``ops/cost_volume.py``) at integer coordinates ``xs``,
+    ``ys`` ([P] or [P, A]) of planes [..., P(, 1), 4]. Returns (costs,
+    oob), each [V, ..., P(, A)]; view 0 and the invalid views cost
+    COST_MAX, view 0 counts as out of bounds."""
     vs = ctx.volumes
-    if vs.D is None:
-        raise ValueError("a geometric pass needs depth volumes (add_depth_volumes)")
-    return _grid_eval(ctx, plane, lambda planes_cf: ncc_volume.geom_cost_views(
-        vs.D, planes_cf, vs.geom_consts, vs.num_slices), pad_value=GEOM_COST_MAX)
+    C = vs.C36 if which == "C36" else vs.C9
+    u_min, du = vs.u_grid
+    dirs = geometry.pixel_dirs(ctx.cams.K[0], xs.to(torch.float32), ys.to(torch.float32))
+    u = -torch.sum(plane[..., :3] * dirs, dim=-1) / plane[..., 3]
+    k = (u - u_min) / du
+    costs, oobs = [], []
+    for v in range(1, ctx.num_views):
+        c = cost_volume.fetch_cost(C[v - 1], xs, ys, k, ncc_volume.PAD_Y, ncc_volume.PAD_X)
+        o = point_warp_oob(ctx, vs.consts[v - 1, 0], dirs, u)
+        costs.append(torch.where(o, COST_MAX, c))
+        oobs.append(o)
+    oob_all = torch.cat([torch.ones_like(oobs[0])[None], torch.stack(oobs)])
+    return _with_ref_view(ctx, torch.stack(costs), COST_MAX), oob_all
+
+
+def cost_vector(ctx: CostContext, plane: torch.Tensor, radius: int, increment: int,
+                xs: Optional[torch.Tensor] = None, ys: Optional[torch.Tensor] = None):
+    """Per-view NCC costs [V, ...] (ComputeMultiViewCostVectorOld,
+    APD.cu:707-716). On the volume path a grid evaluation [(C,) H, W, 4] is
+    one H2 launch over all source views (the reference package's rebased,
+    full-K and sweep evaluators compute these same costs), and a point
+    evaluation with a standard window reads C36 / C9. Without volumes every
+    evaluation warps directly (:func:`ncc_cost_view`), all source views at
+    once."""
+    vs = ctx.volumes
+    if xs is None and vs is not None:
+        return _grid_eval(ctx, plane, lambda planes_cf: ncc_volume.ncc_cost_views(
+            vs.E, vs.ref_pad, planes_cf, vs.consts, vs.num_slices,
+            radius=radius, increment=increment))
+    if (xs is not None and vs is not None and vs.C36 is not None
+            and (radius, increment) in ((5, 2), (5, 5))):
+        costs, _ = point_cost_volume(ctx, plane, xs, ys,
+                                     "C36" if (radius, increment) == (5, 2) else "C9")
+        return costs
+    return _with_ref_view(
+        ctx, ncc_cost_view(ctx, _source_views(ctx), plane, radius, increment, xs, ys), COST_MAX)
+
+
+def geom_cost_view(ctx: CostContext, v: torch.Tensor, plane: torch.Tensor,
+                   xs: Optional[torch.Tensor] = None,
+                   ys: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Geometric consistency [Vs, ...] by direct reprojection through the
+    depth maps of the source views ``v`` (a 1-D tensor; truncating nearest
+    read), clamped at GEOM_COST_MAX;
+    a zero source depth costs GEOM_COST_MAX (ComputeGeomConsistencyCost,
+    APD.cu:752-789). Grid or point mode as :func:`ncc_cost_view`."""
+    if ctx.depth_maps is None:
+        raise ValueError("a geometric cost without depth volumes needs the context's "
+                         "depth_maps")
+    if xs is None:
+        xs_, ys_, dirs = ctx.x, ctx.y, ctx.dirs
+    else:
+        xs_, ys_ = xs, ys
+        dirs = geometry.pixel_dirs(ctx.cams.K[0], xs, ys)
+    depth = -plane[..., 3] / torch.sum(plane[..., :3] * dirs, dim=-1)
+    nd = depth.dim()
+    cams = ctx.cams
+    X = geometry.backproject_world(xs_, ys_, depth, cams.K[0], cams.R[0], cams.c[0])
+    Kv, Rv = _per_view(cams.K, v, nd), _per_view(cams.R, v, nd)
+    px, py, _ = geometry.project_camera(X, Kv, Rv, _per_view(cams.t, v, nd))
+    H, W = ctx.height, ctx.width
+    src_depth = sampling.nearest_sample_trunc_flat(ctx.depth_maps, _view_base(v, H, W, nd),
+                                                   px, py)
+    X2 = geometry.backproject_world(px, py, src_depth, Kv, Rv, _per_view(cams.c, v, nd))
+    bx, by, _ = geometry.project_camera(X2, cams.K[0], cams.R[0], cams.t[0])
+    err = torch.sqrt((xs_ - bx) ** 2 + (ys_ - by) ** 2)
+    return torch.where(src_depth == 0.0, GEOM_COST_MAX, torch.clamp(err, max=GEOM_COST_MAX))
+
+
+def geom_cost_vector(ctx: CostContext, plane: torch.Tensor,
+                     xs: Optional[torch.Tensor] = None, ys: Optional[torch.Tensor] = None):
+    """Per-view geometric-consistency costs [V, ...]
+    (ComputeGeomConsistencyCost, APD.cu:752-789): on the volume path a grid
+    evaluation is one H4 launch over all source views; without volumes
+    every evaluation reprojects directly (:func:`geom_cost_view`)."""
+    vs = ctx.volumes
+    if xs is None and vs is not None:
+        if vs.D is None:
+            raise ValueError("a geometric pass needs depth volumes (add_depth_volumes)")
+        return _grid_eval(ctx, plane, lambda planes_cf: ncc_volume.geom_cost_views(
+            vs.D, planes_cf, vs.geom_consts, vs.num_slices), pad_value=GEOM_COST_MAX)
+    return _with_ref_view(ctx, geom_cost_view(ctx, _source_views(ctx), plane, xs, ys),
+                          GEOM_COST_MAX)
 
 
 def initial_cost_and_views(ctx: CostContext, plane, radius: int, increment: int,

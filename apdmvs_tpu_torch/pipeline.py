@@ -17,6 +17,12 @@ The weak stages (``weak.py``) run on passes with ``use_APD`` over a
 worklist of the prior's WEAK pixels whose capacity the caller sizes
 (``scene._bucket_capacity``).
 
+Two paths compute the pass: the volume path (``volumes``: the plane-sweep
+volumes and the kernels H1-H6) and the direct-warp path (``volumes``
+None: the images, and the source views' depth maps on geometric passes,
+warped in plain PyTorch as the reference package does off the TPU,
+``ncc.py``).
+
 A divergence of design, not of results: the reference rebases its volumes
 on the current depth before the recost and every iteration
 (``apdmvs_tpu/pipeline.py:122-168``), so its TPU kernels read a narrow band
@@ -61,18 +67,30 @@ def patchmatch_pass(
     prior: PassState,
     draws,
     cfg: PassConfig,
-    volumes: ncc.VolumeSet,  # image volumes (+ depth volumes on geom passes)
+    volumes: Optional[ncc.VolumeSet] = None,  # image volumes (+ depth volumes on geom passes)
     weak_capacity: int = 0,
     ransac_threshold: float = 0.005,
+    images: Optional[torch.Tensor] = None,  # [V, H, W], the direct-warp path's input
+    depth_maps: Optional[torch.Tensor] = None,  # [V, H, W], its geometric passes' input
 ) -> PassOutputs:
     """One full pass over one reference view. ``draws`` is a draw source
-    (rng.py); ``volumes`` must carry D when ``cfg.geom_consistency``, and
-    C36 and C9 when the pass runs the weak machinery (``cfg.use_APD`` and
-    ``weak_capacity`` > 0)."""
-    if cfg.geom_consistency and volumes.D is None:
-        raise ValueError("a geometric pass needs depth volumes (ncc.add_depth_volumes)")
+    (rng.py). On the volume path ``volumes`` must carry D when
+    ``cfg.geom_consistency``, and C36 and C9 when the pass runs the weak
+    machinery (``cfg.use_APD`` and ``weak_capacity`` > 0). Without volumes
+    the pass reads ``images`` and, when ``cfg.geom_consistency``,
+    ``depth_maps`` (entry 0 unused); they are ignored on the volume path."""
+    if volumes is None:
+        if images is None:
+            raise ValueError("a pass without volumes needs the images (the direct-warp path)")
+        if cfg.geom_consistency and depth_maps is None:
+            raise ValueError("a geometric pass without volumes needs the source depth maps")
+        ctx_inputs = dict(images=images, depth_maps=depth_maps if cfg.geom_consistency else None)
+    else:
+        if cfg.geom_consistency and volumes.D is None:
+            raise ValueError("a geometric pass needs depth volumes (ncc.add_depth_volumes)")
+        ctx_inputs = {}
     H, W = prior.depth.shape
-    ctx = ncc.make_context(cams, src_valid, H, W, volumes)
+    ctx = ncc.make_context(cams, src_valid, H, W, volumes, **ctx_inputs)
     depth_min = cams.depth_min[0]
     depth_max = cams.depth_max[0]
     pixel_state = prior.pixel_state
@@ -83,13 +101,16 @@ def patchmatch_pass(
 
     # weak prep. Anchor 3-D points use the prior depth, as the reference's
     # GenNeighbours runs before RandomInitialization (APD.cu:2415-2440);
-    # anchors are fixed for the pass, so their volume columns are gathered once
+    # anchors are fixed for the pass, so on the volume path their volume
+    # columns are gathered once (C36 and C9 required: the volume path never
+    # takes the direct warp)
     weak_xy = anchors = wcols = None
     if cfg.use_APD and weak_capacity > 0:
         weak_xy = weak.compact_weak_pixels(pixel_state, weak_capacity)
         anchors, pixel_state = weak.generate_anchors(
             ctx, prior.depth, pixel_state, weak_xy, draws, cfg, ransac_threshold)
-        wcols = weak.build_weak_cols(ctx, weak_xy, anchors)
+        if volumes is not None:
+            wcols = weak.build_weak_cols(ctx, weak_xy, anchors)
 
     # RandomInitialization (APD.cu:806-835)
     if cfg.state == RunState.FIRST_INIT:

@@ -42,10 +42,19 @@ def bilinear_sample(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> to
 def nearest_sample_trunc(image: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """image[int(y), int(x)] with truncation toward zero, border-clamped
     (the reference's depth-texture read, APD.cu:772)."""
-    H, W = image.shape
-    xi = torch.clamp(x.to(torch.int64), 0, W - 1)
-    yi = torch.clamp(y.to(torch.int64), 0, H - 1)
-    return image.reshape(-1)[yi * W + xi]
+    return nearest_sample_trunc_flat(image[None], 0, x, y)
+
+
+def nearest_sample_trunc_flat(images: torch.Tensor, base, x: torch.Tensor,
+                              y: torch.Tensor) -> torch.Tensor:
+    """:func:`nearest_sample_trunc` of a stack [V, H, W], each sample from
+    the map whose flat offset ``base`` (a multiple of H * W, broadcasting
+    against x and y) names. Coordinates beyond the border by more
+    than one pixel (and +-inf) clamp before the conversion."""
+    _, H, W = images.shape
+    xi = torch.clamp(torch.clamp(x, -1.0, float(W)).to(torch.int64), 0, W - 1)
+    yi = torch.clamp(torch.clamp(y, -1.0, float(H)).to(torch.int64), 0, H - 1)
+    return images.reshape(-1)[yi * W + xi + base]
 
 
 def gather_grid(field: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

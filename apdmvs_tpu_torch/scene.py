@@ -229,6 +229,84 @@ def _load_src_depths(cache: SceneCache, problem: Problem, view_ids: Sequence[int
     return depths
 
 
+class ProblemInputs(NamedTuple):
+    """One problem's pass inputs at a scale, on the host: images [V, H, W]
+    (zero for padding views), K (scaled), R, t [V, ...] (padding views take
+    the reference camera), src_valid [V] and the depth range."""
+
+    images: np.ndarray
+    K: np.ndarray
+    R: np.ndarray
+    t: np.ndarray
+    src_valid: np.ndarray
+    dmin: float
+    dmax: float
+
+
+def _problem_inputs(cache: SceneCache, problem: Problem, W: int, H: int,
+                    full_size: Tuple[int, int], V: int) -> ProblemInputs:
+    full_w, full_h = full_size
+    view_ids = [problem.ref_image_id] + list(problem.src_image_ids)
+    V_real = len(view_ids)
+    imgs = np.zeros((V, H, W), np.float32)
+    for v, vid in enumerate(view_ids):
+        imgs[v] = cache.gray_scaled(vid, W, H)
+    src_valid = np.zeros(V, bool)
+    src_valid[1:V_real] = True
+    cams_np = [cache.camera(vid) for vid in view_ids]
+    cams_np += [cams_np[0]] * (V - V_real)  # padding views: ref camera, invalid
+    K = geometry.scale_intrinsics(
+        np.stack([c["K"] for c in cams_np]).astype(np.float32), W / float(full_w), H / float(full_h)
+    )
+    ref_cam = cache.camera(problem.ref_image_id)
+    # depth range: ref view's range x 0.6 / 1.2 (APD.cpp:454-455)
+    return ProblemInputs(
+        images=imgs, K=K, R=np.stack([c["R"] for c in cams_np]),
+        t=np.stack([c["t"] for c in cams_np]), src_valid=src_valid,
+        dmin=float(ref_cam["depth_min"]) * 0.6, dmax=float(ref_cam["depth_max"]) * 1.2,
+    )
+
+
+def _cameras(inp: ProblemInputs, device) -> geometry.Cameras:
+    V = inp.K.shape[0]
+    return geometry.make_cameras(inp.K, inp.R, inp.t, np.full(V, inp.dmin, np.float32),
+                                 np.full(V, inp.dmax, np.float32), device=device)
+
+
+def _empty_prior(V: int, H: int, W: int, device, lead: Tuple[int, ...] = ()):
+    """The FIRST_INIT prior: zero depth and normals, all STRONG, no view."""
+    return pipeline.PassState(
+        depth=torch.zeros(lead + (H, W), device=device),
+        normal_world=torch.zeros(lead + (H, W, 3), device=device),
+        pixel_state=torch.full(lead + (H, W), int(PixelState.STRONG), dtype=torch.uint8,
+                               device=device),
+        selected=torch.zeros(lead + (V, H, W), dtype=torch.bool, device=device),
+    )
+
+
+def _persist(problem: Problem, spec: PassSpec, out, dmin: float, dmax: float,
+             show_medium_result: bool) -> Dict[str, np.ndarray]:
+    """Write one problem's four state files (main.cpp:117-124) and, with
+    ``show_medium_result``, its JPEGs (main.cpp:127-134); returns the host
+    arrays as the in-memory mirror keeps them."""
+    depth = out.depth.cpu().numpy().astype(np.float32)
+    normal = out.normal_world.cpu().numpy().astype(np.float32)
+    weak = out.pixel_state.cpu().numpy().astype(np.uint8)
+    selected = pipeline.selected_to_bitmask(out.selected.cpu().numpy())
+    rf = problem.result_folder
+    formats.write_bin_mat(os.path.join(rf, "depths.dmb"), depth)
+    formats.write_bin_mat(os.path.join(rf, "normals.dmb"), normal)
+    formats.write_bin_mat(os.path.join(rf, "weak.bin"), weak)
+    formats.write_bin_mat(os.path.join(rf, "selected_views.bin"), selected)
+    if show_medium_result:
+        tag = f"{spec.pass_index}"
+        imio.save_image_u8(os.path.join(rf, f"depth_{tag}.jpg"),
+                           render.render_depth(depth, dmin, dmax))
+        imio.save_image_u8(os.path.join(rf, f"normal_{tag}.jpg"), render.render_normal(normal))
+        imio.save_image_u8(os.path.join(rf, f"weak_{tag}.jpg"), render.render_weak(weak))
+    return {"depth": depth, "normal": normal, "weak": weak, "selected": selected}
+
+
 def process_problem(
     cache: SceneCache,
     problem: Problem,
@@ -240,52 +318,31 @@ def process_problem(
     show_medium_result: bool = False,
     num_slices: int = 160,
     allow_missing_prior: bool = False,
+    use_volumes: bool = True,
 ) -> ProblemStats:
     """One (view, pass): the reference's ProcessProblem (main.cpp:91-138).
     Loads inputs, runs the pass on ``device``, clamps out-of-range depths
-    and persists the four state files."""
+    and persists the four state files. ``use_volumes`` False runs the
+    direct-warp path: no volume is built, and geometric passes read the
+    source views' depth maps."""
     t0 = time.perf_counter()
     device = torch.device(device)
     # the cached image volumes serve all of this (problem, scale)'s passes, so
     # they follow the round's APD mode, not this pass's after a downgrade below
     round_use_apd = spec.use_APD
-    full_w, full_h = full_size
-    W, H = scaled_size(full_w, full_h, spec.scale_size)
+    W, H = scaled_size(*full_size, spec.scale_size)
     view_ids = [problem.ref_image_id] + list(problem.src_image_ids)
     V_real = len(view_ids)
     V = num_views_pad or V_real
-
-    imgs = np.zeros((V, H, W), np.float32)
-    for v, vid in enumerate(view_ids):
-        imgs[v] = cache.gray_scaled(vid, W, H)
-    src_valid = np.zeros(V, bool)
-    src_valid[1:V_real] = True
-
-    cams_np = [cache.camera(vid) for vid in view_ids]
-    cams_np += [cams_np[0]] * (V - V_real)  # padding views: ref camera, invalid
-    K = geometry.scale_intrinsics(
-        np.stack([c["K"] for c in cams_np]).astype(np.float32), W / float(full_w), H / float(full_h)
-    )
-    ref_cam = cache.camera(problem.ref_image_id)
-    # depth range: ref view's range x 0.6 / 1.2 (APD.cpp:454-455)
-    dmin = float(ref_cam["depth_min"]) * 0.6
-    dmax = float(ref_cam["depth_max"]) * 1.2
-    cams = geometry.make_cameras(
-        K, np.stack([c["R"] for c in cams_np]), np.stack([c["t"] for c in cams_np]),
-        np.full(V, dmin, np.float32), np.full(V, dmax, np.float32), device=device,
-    )
+    inp = _problem_inputs(cache, problem, W, H, full_size, V)
+    dmin, dmax = inp.dmin, inp.dmax
+    cams = _cameras(inp, device)
 
     prior = None
     if spec.state != RunState.FIRST_INIT:
         prior = _load_prior(cache, problem, V, W, H, device, missing_ok=allow_missing_prior)
     if prior is None:
-        prior = pipeline.PassState(
-            depth=torch.zeros((H, W), device=device),
-            normal_world=torch.zeros((H, W, 3), device=device),
-            pixel_state=torch.full((H, W), int(PixelState.STRONG), dtype=torch.uint8,
-                                   device=device),
-            selected=torch.zeros((V, H, W), dtype=torch.bool, device=device),
-        )
+        prior = _empty_prior(V, H, W, device)
         spec = dataclasses.replace(spec, state=RunState.FIRST_INIT, use_APD=False,
                                    geom_consistency=False)
     weak_in = weak_capacity = 0
@@ -295,48 +352,35 @@ def process_problem(
         if weak_capacity == 0:
             spec = dataclasses.replace(spec, use_APD=False)
 
-    volumes = cache.image_volumes(
-        problem.ref_image_id, W,
-        builder=lambda: ncc.build_image_volume_set(
-            torch.as_tensor(imgs, device=device), cams, dmin, dmax, num_slices=num_slices,
-            weak_cost_volumes=round_use_apd),
-    )
+    images = torch.as_tensor(inp.images, device=device)
+    volumes = depth_maps = None
+    if use_volumes:
+        volumes = cache.image_volumes(
+            problem.ref_image_id, W,
+            builder=lambda: ncc.build_image_volume_set(
+                images, cams, dmin, dmax, num_slices=num_slices,
+                weak_cost_volumes=round_use_apd),
+        )
     if spec.geom_consistency:
         dm = _load_src_depths(cache, problem, view_ids, W, H)
         if dm[1:V_real].any():
             dm = np.concatenate([dm, np.zeros((V - V_real, H, W), np.float32)])
-            volumes = ncc.add_depth_volumes(
-                volumes, torch.as_tensor(dm, device=device), cams, dmin, dmax)
+            depth_maps = torch.as_tensor(dm, device=device)
+            if use_volumes:
+                volumes = ncc.add_depth_volumes(volumes, depth_maps, cams, dmin, dmax)
         else:
             spec = dataclasses.replace(spec, geom_consistency=False)
 
     draws = rng.TorchDraws(rng.pass_seed(seed, spec.pass_index, problem.index), H, W, device)
     out = pipeline.patchmatch_pass(
-        cams, torch.as_tensor(src_valid, device=device), prior, draws,
+        cams, torch.as_tensor(inp.src_valid, device=device), prior, draws,
         PassConfig.from_spec(spec), volumes, weak_capacity=weak_capacity,
-        ransac_threshold=spec.ransac_threshold,
+        ransac_threshold=spec.ransac_threshold, images=images, depth_maps=depth_maps,
     )
     out = pipeline.clamp_outputs(out, dmin, dmax)
-
-    depth = out.depth.cpu().numpy().astype(np.float32)
-    normal = out.normal_world.cpu().numpy().astype(np.float32)
-    weak = out.pixel_state.cpu().numpy().astype(np.uint8)
-    selected = pipeline.selected_to_bitmask(out.selected.cpu().numpy())
-    rf = problem.result_folder
-    formats.write_bin_mat(os.path.join(rf, "depths.dmb"), depth)
-    formats.write_bin_mat(os.path.join(rf, "normals.dmb"), normal)
-    formats.write_bin_mat(os.path.join(rf, "weak.bin"), weak)
-    formats.write_bin_mat(os.path.join(rf, "selected_views.bin"), selected)
-    cache.outputs[problem.ref_image_id] = {
-        "depth": depth, "normal": normal, "weak": weak, "selected": selected,
-    }
-    if show_medium_result:
-        tag = f"{spec.pass_index}"
-        imio.save_image_u8(os.path.join(rf, f"depth_{tag}.jpg"),
-                           render.render_depth(depth, dmin, dmax))
-        imio.save_image_u8(os.path.join(rf, f"normal_{tag}.jpg"), render.render_normal(normal))
-        imio.save_image_u8(os.path.join(rf, f"weak_{tag}.jpg"), render.render_weak(weak))
-    weak_pct = 100.0 * float(np.mean(weak == PixelState.WEAK))
+    saved = _persist(problem, spec, out, dmin, dmax, show_medium_result)
+    cache.outputs[problem.ref_image_id] = saved
+    weak_pct = 100.0 * float(np.mean(saved["weak"] == PixelState.WEAK))
     return ProblemStats(seconds=time.perf_counter() - t0, weak_pct=weak_pct, weak_in=weak_in)
 
 
@@ -421,6 +465,7 @@ def run_scene(
     volume_cache_gb: float = 6.0,
     verbose: bool = True,
     num_slices: int = 160,
+    use_volumes: bool = True,
 ) -> SceneRun:
     """Full reconstruction (main.cpp:140-233): round scheduler -> one pass
     per (view, pass) on ``device`` -> fusion (``fusion_variant``, one of
@@ -429,7 +474,15 @@ def run_scene(
 
     Images over 1000 px run more than one round; every round after the
     first runs the APD weak machinery. ``min_rounds`` forces extra rounds
-    below that trigger (main.cpp:72-88), ``max_rounds`` caps them."""
+    below that trigger (main.cpp:72-88), ``max_rounds`` caps them.
+
+    Views run one after another, and a geometric pass reads the source
+    views' depths as they stand, some already updated in the same pass
+    (Gauss-Seidel, as the reference package's sequential runner; the
+    batched runner, :func:`run_scene_batched`, reads the previous pass's).
+    ``use_volumes`` False takes the direct-warp path (``--no-volumes``);
+    volumes stay on by default on every device, the CPU included, where
+    the reference package turns them off."""
     device = resolve_device(device)
     if fusion_variant not in FUSION_VARIANTS:
         raise ValueError(f"unknown fusion variant {fusion_variant!r}")
@@ -454,7 +507,7 @@ def run_scene(
             stats = process_problem(
                 cache, problem, spec, full_size, seed, device, num_views_pad=V_pad,
                 show_medium_result=show_medium_result, num_slices=num_slices,
-                allow_missing_prior=allow_missing_prior,
+                allow_missing_prior=allow_missing_prior, use_volumes=use_volumes,
             )
             passes.append((spec, problem, stats))
             if verbose:
@@ -466,6 +519,185 @@ def run_scene(
     if verbose:
         print(f"Fused point cloud: {ply}")
     if not keep_intermediates:  # the reference deletes per-view dirs (main.cpp:220-230)
+        for p in problems:
+            shutil.rmtree(p.result_folder, ignore_errors=True)
+    return SceneRun(ply=ply, passes=passes)
+
+
+def _resample_nearest(state: pipeline.PassState, H: int, W: int) -> pipeline.PassState:
+    """Nearest-neighbour resample of a batched state [N, ...] to (H, W) on
+    its device, by the static index maps of ``imio.resize_nearest``
+    (APD.cpp:552-581)."""
+    ph, pw = state.depth.shape[1:3]
+    if (ph, pw) == (H, W):
+        return state
+    dev = state.depth.device
+    ys = torch.as_tensor(np.minimum((np.arange(H) * (ph / H)).astype(np.int64), ph - 1),
+                         device=dev)
+    xs = torch.as_tensor(np.minimum((np.arange(W) * (pw / W)).astype(np.int64), pw - 1),
+                         device=dev)
+
+    def rz(a, axis):  # the (y, x) axes are (axis, axis + 1)
+        return a.index_select(axis, ys).index_select(axis + 1, xs)
+
+    return pipeline.PassState(depth=rz(state.depth, 1), normal_world=rz(state.normal_world, 1),
+                              pixel_state=rz(state.pixel_state, 1), selected=rz(state.selected, 2))
+
+
+def run_scene_batched(
+    dense_folder,
+    seed: int = 0,
+    device="cuda",
+    fusion_variant: str = "eth",
+    keep_intermediates: bool = True,
+    max_rounds: Optional[int] = None,
+    min_rounds: Optional[int] = None,
+    n_view_shards: Optional[int] = None,
+    n_space_shards: int = 1,
+    camera_model: str = "eth",
+    show_medium_result: bool = False,
+    verbose: bool = True,
+    use_volumes: bool = True,
+    num_slices: int = 160,
+    volume_cache_gb: float = 6.0,
+) -> SceneRun:
+    """Batched reconstruction (``apdmvs_tpu/scene.py:485-890``): every
+    reference view of a pass runs as one batch on ``device``
+    (``parallel.sharded_batch_pass``), the state stays on the device between
+    passes and is persisted per pass (the checkpoint contract of
+    :func:`run_scene`, with the same JPEGs). Returns a :class:`SceneRun`
+    whose per-view stats carry the batch's wall divided over its views.
+
+    Per pass: stacked inputs [N, V, H, W] (padding views take the reference
+    camera and are invalid); the prior resampled on the device between
+    scales; one host read of the batch's WEAK counts sizes one worklist
+    capacity for all problems (a problem without weak pixels runs the weak
+    branch on an all-padding worklist) and one read of "any depth > 0"
+    gates geometry; problem i draws from ``rng.pass_seed(seed, pass, i)``,
+    as the sequential runner does, so a FIRST_INIT pass equals its. A
+    geometric pass reads the previous pass's depth stack (Jacobi; the
+    sequential runner is Gauss-Seidel, both the reference package's own
+    semantics). Image volumes (``use_volumes``, on by default on every
+    device) are pinned once per scale within ``volume_cache_gb``, per
+    problem: the first M sets that fit, one set held back for the loop's
+    own build when not all do; the rest are rebuilt every pass.
+
+    A schedule whose first pass is not FIRST_INIT raises (the reference
+    package re-initialises there silently). ``n_view_shards`` or
+    ``n_space_shards`` above 1 is multi-GPU work and raises."""
+    from apdmvs_tpu_torch import parallel
+
+    if (n_view_shards or 1) != 1 or n_space_shards != 1:
+        raise NotImplementedError("--view-shards / --space-shards above 1 is multi-GPU work "
+                                  "(ROADMAP queue 1 item 5); the port runs one card")
+    device = resolve_device(device)
+    if fusion_variant not in FUSION_VARIANTS:
+        raise ValueError(f"unknown fusion variant {fusion_variant!r}")
+    dense_folder = str(dense_folder)
+    problems = generate_sample_list(dense_folder)
+    if verbose:
+        print(f"There are {len(problems)} problems needed to be processed!")
+    full_size = check_images(dense_folder, problems)
+    round_num = compute_round_num(*full_size)
+    if min_rounds is not None:
+        round_num = max(round_num, min_rounds)
+    if max_rounds is not None:
+        round_num = min(round_num, max_rounds)
+    if verbose:
+        print(f"Round num: {round_num}")
+    cache = SceneCache(dense_folder, camera_model=camera_model)
+    N = len(problems)
+    V = max(1 + len(p.src_image_ids) for p in problems)
+    id_to_pos = {p.ref_image_id: i for i, p in enumerate(problems)}
+    src_index = np.array([[id_to_pos.get(vid, n) for vid in [p.ref_image_id] + p.src_image_ids]
+                          + [n] * (V - 1 - len(p.src_image_ids))
+                          for n, p in enumerate(problems)], np.int64)
+    state: Optional[pipeline.PassState] = None
+    vol_cache: Dict[Tuple[int, int], Optional[ncc.VolumeSet]] = {}
+    passes = []
+    for spec in build_schedule(round_num):
+        t0 = time.perf_counter()
+        W, H = scaled_size(*full_size, spec.scale_size)
+        inps = [_problem_inputs(cache, p, W, H, full_size, V) for p in problems]
+        images = torch.as_tensor(np.stack([i.images for i in inps]), device=device)
+        dmins = np.array([i.dmin for i in inps], np.float32)
+        dmaxs = np.array([i.dmax for i in inps], np.float32)
+        cams = geometry.make_cameras(
+            np.stack([i.K for i in inps]), np.stack([i.R for i in inps]),
+            np.stack([i.t for i in inps]), np.repeat(dmins[:, None], V, 1),
+            np.repeat(dmaxs[:, None], V, 1), device=device)
+        src_valid = torch.as_tensor(np.stack([i.src_valid for i in inps]), device=device)
+
+        if state is None:
+            if spec.state != RunState.FIRST_INIT:
+                raise ValueError(f"the batched runner's first pass must be FIRST_INIT, not "
+                                 f"{spec.state.name}: there is no prior state to refine")
+            prior = _empty_prior(V, H, W, device, lead=(N,))
+        else:
+            prior = _resample_nearest(state, H, W)
+
+        eff = spec
+        weak_capacity = 0
+        weak_counts = np.zeros(N, np.int64)
+        if eff.use_APD:
+            weak_counts = torch.sum(prior.pixel_state == PixelState.WEAK, dim=(1, 2)).cpu().numpy()
+            weak_capacity = _bucket_capacity(int(weak_counts.max()), H * W)
+            if weak_capacity == 0:
+                eff = dataclasses.replace(eff, use_APD=False)
+        all_depths = prior.depth if eff.geom_consistency else None
+        if all_depths is not None and not bool((all_depths > 0).any()):
+            eff = dataclasses.replace(eff, geom_consistency=False)
+            all_depths = None
+        draws = [rng.TorchDraws(rng.pass_seed(seed, spec.pass_index, p.index), H, W, device)
+                 for p in problems]
+
+        prebuilt = None
+        if use_volumes:
+            if (W, H) not in vol_cache:
+                vol_cache.clear()  # the schedule never revisits a finished scale
+                per_set = ncc.image_volume_set_nbytes(V, H, W, num_slices,
+                                                      weak_cost_volumes=spec.use_APD)
+                M = parallel.pinned_count(per_set, N, volume_cache_gb * 1e9)
+                if verbose:
+                    print(f"volume cache: pinning {M}/{N} problems' image-volume sets "
+                          f"({per_set / 1e9:.2f} GB each, budget {volume_cache_gb} GB)"
+                          + ("" if M == N else "; the rest rebuild every pass"))
+                vol_cache[(W, H)] = None if M == 0 else parallel.build_batch_image_volumes(
+                    images[:M], geometry.Cameras(*(f[:M] for f in cams)), num_slices,
+                    weak_cost_volumes=spec.use_APD)
+            prebuilt = vol_cache[(W, H)]
+
+        out = parallel.sharded_batch_pass(
+            images, cams, src_valid, prior, draws, np.full(N, eff.ransac_threshold),
+            PassConfig.from_spec(eff), weak_capacity=weak_capacity, all_depths=all_depths,
+            src_index=src_index if all_depths is not None else None, use_volumes=use_volumes,
+            num_slices=num_slices, prebuilt=prebuilt)
+        dmin_t = torch.as_tensor(dmins, device=device)[:, None, None]
+        dmax_t = torch.as_tensor(dmaxs, device=device)[:, None, None]
+        bad = (out.depth < dmin_t) | (out.depth > dmax_t)
+        state = pipeline.PassState(
+            depth=torch.where(bad, 0.0, out.depth), normal_world=out.normal_world,
+            pixel_state=torch.where(bad, torch.full_like(out.pixel_state,
+                                                         int(PixelState.UNKNOWN)),
+                                    out.pixel_state),
+            selected=out.selected)
+        weak_pcts = []
+        for n, p in enumerate(problems):
+            saved = _persist(p, spec, parallel.problem_row(state, n), float(dmins[n]),
+                             float(dmaxs[n]), show_medium_result)
+            weak_pcts.append(100.0 * float(np.mean(saved["weak"] == PixelState.WEAK)))
+        seconds = time.perf_counter() - t0
+        for n, p in enumerate(problems):
+            passes.append((spec, p, ProblemStats(seconds=seconds / N, weak_pct=weak_pcts[n],
+                                                 weak_in=int(weak_counts[n]))))
+        if verbose:
+            print(f"round {spec.round_index} pass {spec.pass_index} ({eff.state.name}, scale "
+                  f"1/{spec.scale_size}, {N} views batched on {device}): {seconds * 1000:.0f} "
+                  f"ms, weak {float(np.mean(weak_pcts)):.1f}%")
+    ply = run_fusion(dense_folder, problems, variant=fusion_variant, device=device)
+    if verbose:
+        print(f"Fused point cloud: {ply}")
+    if not keep_intermediates:
         for p in problems:
             shutil.rmtree(p.result_folder, ignore_errors=True)
     return SceneRun(ply=ply, passes=passes)

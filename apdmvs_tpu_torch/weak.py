@@ -15,17 +15,21 @@ deformation for textureless regions:
   anchors' current 3-D points.
 - ComputeBilateralNCCNew (APD.cu:400-528): deformed NCC = 0.25 * centre
   patch + 0.75 * mean of the anchor patches, all at the candidate plane's
-  depth, read from the per-pass resident columns of the cost volumes C36
-  and C9 (``ops/cols.py``: H5 gathers them, H6 looks them up).
+  depth. On the volume path it reads the per-pass resident columns of the
+  cost volumes C36 and C9 (``ops/cols.py``: H5 gathers them, H6 looks them
+  up); without volumes every patch is warped directly
+  (``ncc.ncc_cost_view`` in point mode). The reference package's third
+  branch, C36 and C9 without resident columns, reads the cost volumes
+  point by point (``ncc.point_cost_volume``); no pass of the port takes
+  it.
 - CheckerboardPropagationWeak (APD.cu:1323-1508): candidates are the 8
   anchors' planes (STRONG anchors only), then the fit plane, the random
   refinement and the plain-NCC cost rewrite.
 
 All weak-pixel work runs over a compacted worklist [N] of WEAK pixels in
 raster order, padded with -1. Random numbers come from a draw source
-(``rng.py``). Only the volume path with resident columns is ported; the
-direct-warp, point-volume and space-sharded branches of the reference
-package are not.
+(``rng.py``). The space-sharded branches of the reference package are not
+ported.
 
 One deliberate divergence: the reference package scatters worklist
 results with ``.at[iy, ix].set(..., mode="drop")`` and -1 for "no write",
@@ -389,16 +393,89 @@ def generate_anchors(ctx: CostContext, prior_depth: torch.Tensor, pixel_state: t
 
 
 def deformed_cost_vector(ctx: CostContext, weak_xy, plane, anchors: AnchorData, selected_grid,
-                         wcols: WeakCols, sel_at_anchor=None) -> torch.Tensor:
+                         wcols: Optional[WeakCols] = None, sel_at_anchor=None,
+                         cfg: Optional[PassConfig] = None) -> torch.Tensor:
     """Deformed (APD) NCC per view, [V, ..., N], of candidate planes
-    [..., N, 4] (ComputeBilateralNCCNew, APD.cu:400-528), from the resident
-    columns. ``sel_at_anchor`` [Vs, N, 8]: the selected views at the
-    anchors (gathered from ``selected_grid`` when not given)."""
-    if sel_at_anchor is None:
-        a = anchors.coords[:, 1:]
-        sel = sampling.gather_grid(selected_grid.permute(1, 2, 0), a[..., 0], a[..., 1])
-        sel_at_anchor = sel.permute(2, 0, 1)[1:]  # [Vs, N, 8]
-    return _deformed_cost_vector_cols(ctx, weak_xy, plane, anchors, sel_at_anchor, wcols)
+    [..., N, 4] (ComputeBilateralNCCNew, APD.cu:400-528): from the resident
+    columns ``wcols``; without them from C36 / C9 point by point when the
+    context carries them, else by direct warping (both read the windows of
+    ``cfg``). ``sel_at_anchor`` [Vs, N, 8]: the selected views at the
+    anchors (gathered from ``selected_grid`` when not given; the resident
+    columns' branch only)."""
+    if wcols is not None:
+        if sel_at_anchor is None:
+            sel_at_anchor = _sel_at_anchors(selected_grid, anchors.coords[:, 1:])[1:]
+        return _deformed_cost_vector_cols(ctx, weak_xy, plane, anchors, sel_at_anchor, wcols)
+    if cfg is None:
+        raise ValueError("the deformed cost without resident columns needs the pass's cfg")
+    if ctx.volumes is not None and ctx.volumes.C36 is not None:
+        return _deformed_cost_vector_volume(ctx, weak_xy, plane, anchors, selected_grid)
+    return _deformed_cost_vector_direct(ctx, weak_xy, plane, anchors, selected_grid, cfg)
+
+
+def _anchor_terms(center, a_cost, a_oob, valid, sel_a):
+    """0.25 * centre + 0.75 * mean of the included anchor terms; an anchor
+    that warps out of the source counts COST_MAX where the view is selected
+    at the anchor and is left out otherwise (APD.cu:438-521). a_cost,
+    a_oob: [..., N, 8], the centre without the last axis; valid: [N, 8];
+    sel_a: the selected views at the anchors, broadcasting against a_oob."""
+    include = valid & (~a_oob | sel_a)
+    costs_a = torch.where(include, torch.where(a_oob, COST_MAX, a_cost), 0.0)
+    cnt = torch.sum(include, dim=-1).to(torch.float32)
+    strong_cost = torch.clamp(torch.sum(costs_a, dim=-1) / torch.clamp(cnt, min=1.0),
+                              max=COST_MAX)
+    return torch.where(cnt > 0, 0.25 * center + 0.75 * strong_cost, center)
+
+
+def _per_view_axis(sel, ndim: int):
+    """[V', N, 8] -> [V', 1, ..., N, 8] with ``ndim`` axes in all."""
+    return sel.reshape(sel.shape[:1] + (1,) * (ndim - sel.dim()) + sel.shape[1:])
+
+
+def _sel_at_anchors(selected_grid, a):
+    """[V, N, 8] selected views at the anchors a [N, 8, 2]."""
+    return sampling.gather_grid(selected_grid.permute(1, 2, 0), a[..., 0], a[..., 1]).permute(
+        2, 0, 1)
+
+
+def _deformed_cost_vector_direct(ctx: CostContext, weak_xy, plane, anchors: AnchorData,
+                                 selected_grid, cfg: PassConfig) -> torch.Tensor:
+    """Deformed NCC by direct warping, all source views at once: the centre
+    patch (strong window) at the weak pixel and the eight anchor patches
+    (weak window) at the anchors, warped by the candidate plane; an anchor's
+    out-of-bounds test warps the anchor point itself."""
+    wx = weak_xy[..., 0].to(torch.float32)
+    wy = weak_xy[..., 1].to(torch.float32)
+    H, W = ctx.height, ctx.width
+    a = anchors.coords[:, 1:]  # [N, 8, 2]
+    axf, ayf = a[..., 0].to(torch.float32), a[..., 1].to(torch.float32)
+    views = ncc._source_views(ctx)
+    center = ncc.ncc_cost_view(ctx, views, plane, cfg.strong_radius, cfg.strong_increment,
+                               xs=wx, ys=wy)  # [Vs, ..., N]
+    plane_b = plane[..., None, :]  # [..., N, 1, 4]
+    adirs = geometry.pixel_dirs(ctx.cams.K[0], axf, ayf)  # [N, 8, 3]
+    q, _, _ = ncc._warp_basis(ctx, views, plane_b, adirs)  # [Vs, ..., N, 8, 3]
+    qx, qy = ncc._project(q)
+    a_oob = (qx < 0) | (qy < 0) | (qx >= W) | (qy >= H)
+    a_cost = ncc.ncc_cost_view(ctx, views, plane_b, cfg.weak_radius, cfg.weak_increment,
+                               xs=axf, ys=ayf)  # [Vs, ..., N, 8]
+    total = _anchor_terms(center, a_cost, a_oob, a[..., 0] >= 0,
+                          _per_view_axis(_sel_at_anchors(selected_grid, a)[1:], a_cost.dim()))
+    return ncc._with_ref_view(ctx, total, COST_MAX)
+
+
+def _deformed_cost_vector_volume(ctx: CostContext, weak_xy, plane, anchors: AnchorData,
+                                 selected_grid) -> torch.Tensor:
+    """Deformed NCC through the cost volumes point by point: the centre term
+    from C36 at the weak pixel, the anchor terms from C9 at each anchor, all
+    at the candidate plane's depth there (``ncc.point_cost_volume``)."""
+    a = anchors.coords[:, 1:]  # [N, 8, 2]
+    center, _ = ncc.point_cost_volume(ctx, plane, weak_xy[..., 0], weak_xy[..., 1], "C36")
+    a_cost, a_oob = ncc.point_cost_volume(ctx, plane[..., None, :], a[..., 0], a[..., 1], "C9")
+    total = _anchor_terms(center, a_cost, a_oob, a[..., 0] >= 0,
+                          _per_view_axis(_sel_at_anchors(selected_grid, a), a_cost.dim()))
+    shape = (ctx.num_views,) + (1,) * (total.dim() - 1)
+    return torch.where(ctx.src_valid.reshape(shape), total, COST_MAX)
 
 
 def _warp_oob_batched(ctx: CostContext, Md: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -470,12 +547,7 @@ def _deformed_cost_vector_cols(ctx: CostContext, weak_xy, plane, anchors: Anchor
     ).reshape(B, -1, N, _NUM_ANCHORS)  # [B, Vs, N, 8]
     a_oob = _warp_oob_batched(ctx, geometry.mat3_vec(M[:, None, None], adirs[None]), u_a)
 
-    include = valid[None, None] & (~a_oob | sel_at_anchor[None])
-    costs_a = torch.where(include, torch.where(a_oob, COST_MAX, a_val), 0.0)
-    cnt = torch.sum(include, dim=-1).to(torch.float32)  # [B, Vs, N]
-    strong_cost = torch.clamp(torch.sum(costs_a, dim=-1) / torch.clamp(cnt, min=1.0),
-                              max=COST_MAX)
-    total = torch.where(cnt > 0, 0.25 * center + 0.75 * strong_cost, center)
+    total = _anchor_terms(center, a_val, a_oob, valid, sel_at_anchor[None])  # [B, Vs, N]
     return _to_views(ctx, total, lead, N, COST_MAX)
 
 
@@ -573,10 +645,12 @@ def ransac_fit_planes(ctx: CostContext, planes_grid, weak_xy, anchors: AnchorDat
 
 def propagate_weak(ctx: CostContext, st: StrongState, pixel_state, weak_xy,
                    anchors: AnchorData, iter_idx: int, draws, cfg: PassConfig,
-                   wcols: WeakCols) -> StrongState:
+                   wcols: Optional[WeakCols] = None) -> StrongState:
     """One weak-pixel sweep (CheckerboardPropagationWeak, weak refinement
     and plain-NCC cost rewrite; APD.cu:1323-1508, 892-980). Writes only the
-    weak pixels that are still WEAK and drew a view."""
+    weak pixels that are still WEAK and drew a view. The volume path reads
+    the resident columns ``wcols``; without volumes (``wcols`` None) the
+    deformed and geometric costs warp directly at the worklist."""
     planes_grid, costs_grid, selected_grid, vw_grid = st
     K0 = ctx.cams.K[0]
     N = weak_xy.shape[0]
@@ -586,8 +660,9 @@ def propagate_weak(ctx: CostContext, st: StrongState, pixel_state, weak_xy,
     still_weak = alive & (sampling.gather_grid(pixel_state, xi, yi) == PixelState.WEAK)
     depth_min = ctx.cams.depth_min[0]
     depth_max = ctx.cams.depth_max[0]
-    if cfg.geom_consistency and wcols.d is None:
-        raise ValueError("a geometric weak sweep needs depth volumes (ncc.add_depth_volumes)")
+    if ctx.volumes is not None and (wcols is None or (cfg.geom_consistency and wcols.d is None)):
+        raise ValueError("a weak sweep on the volume path needs the resident columns, with "
+                         "depth volumes on geometric passes (ncc.add_depth_volumes)")
 
     fit_planes = ransac_fit_planes(ctx, planes_grid, weak_xy, anchors,
                                    draws.fit_ransac(iter_idx, (_RANSAC_STEPS, N, _RANSAC_CHUNK, 3)))
@@ -604,20 +679,25 @@ def propagate_weak(ctx: CostContext, st: StrongState, pixel_state, weak_xy,
 
     def deformed(plane):
         return deformed_cost_vector(ctx, weak_xy, plane, anchors, selected_grid, wcols,
-                                    sel_at_anchor=sel_at_anchor)
+                                    sel_at_anchor=sel_at_anchor, cfg=cfg)
+
+    def geom(plane):
+        if wcols is not None:
+            return _geom_cost_vector_cols(ctx, weak_xy, plane, wcols)
+        return ncc.geom_cost_vector(ctx, plane, xs=wx, ys=wy)
 
     def total(plane):
         """Deformed cost plus the geometric term on geometric passes."""
         cv = deformed(plane)
         if cfg.geom_consistency:
-            cv = cv + cfg.geom_factor * _geom_cost_vector_cols(ctx, weak_xy, plane, wcols)
+            cv = cv + cfg.geom_factor * geom(plane)
         return cv
 
     # the 8 anchor candidates, the current plane and the fit plane in one batch
     cur_plane = sampling.gather_grid(planes_grid, xi, yi)  # [N, 4]
     planes10 = torch.cat([cand_planes.movedim(1, 0), cur_plane[None], fit_planes[None]], dim=0)
     d10 = deformed(planes10)  # [V, 10, N]
-    g10 = _geom_cost_vector_cols(ctx, weak_xy, planes10, wcols) if cfg.geom_consistency else None
+    g10 = geom(planes10) if cfg.geom_consistency else None
 
     flag_t = flag.T[:, None, :]  # [8, 1, N]
     cost_array = torch.where(flag_t, d10[:, :8].movedim(0, 1), 0.0)  # [8, V, N]
@@ -695,10 +775,16 @@ def propagate_weak(ctx: CostContext, st: StrongState, pixel_state, weak_xy,
     ux, uy = xi[upd], yi[upd]
     planes_grid = planes_grid.clone()
     planes_grid[uy, ux] = plane_final[upd]
-    # plain-NCC cost rewrite for strong/weak comparability (APD.cu:1499-1507),
-    # through the same exact grid evaluator as the strong path
-    cv_grid = ncc.cost_vector(ctx, planes_grid, cfg.strong_radius, cfg.strong_increment)
-    cost_final = weighted(cv_grid[:, yi.clamp(0, ctx.height - 1), xi.clamp(0, ctx.width - 1)])
+    # plain-NCC cost rewrite for strong/weak comparability (APD.cu:1499-1507):
+    # on the volume path through the same exact grid evaluator as the strong
+    # path, without volumes by direct warping at the worklist
+    if ctx.volumes is not None:
+        cv_grid = ncc.cost_vector(ctx, planes_grid, cfg.strong_radius, cfg.strong_increment)
+        cv_plain = cv_grid[:, yi.clamp(0, ctx.height - 1), xi.clamp(0, ctx.width - 1)]
+    else:
+        cv_plain = ncc.cost_vector(ctx, plane_final, cfg.strong_radius, cfg.strong_increment,
+                                   xs=wx, ys=wy)
+    cost_final = weighted(cv_plain)
     costs_grid = costs_grid.clone()
     costs_grid[uy, ux] = cost_final[upd]
     selected_grid = selected_grid.clone()

@@ -114,12 +114,30 @@ and no ``ok`` line is printed:
    the JAX package's floors (tests/test_quality.py); H1, H2 and H4 must
    launch on every family, H5 and H6 on multiround.
 10. bench: ``apdmvs_tpu_torch.bench``'s measurement (depth-maps/s of the
-   flagship pass with amortized volume builds, median of 5), its JSON line
-   printed.
+   flagship pass with amortized volume builds, median of 5, and
+   ``batched_maps_per_sec``: 4 copies of the flagship problem through the
+   batched runner's volume path, 2 of their 4 image-volume sets pinned in
+   6 GB), its JSON line printed.
+11. batched: the one-round scene of phase 3 through
+   ``scene.run_scene_batched`` on the card (H1, H2 through
+   ``ncc_cost_views`` and H4 through ``geom_cost_views`` must launch, H3
+   and the one-view wrappers must not; phase 3's checks), then the
+   two-round scene of phase 7 through it (H5 and H6 must launch too;
+   phase 7's checks). Each run with the launch counters zeroed just
+   before and read just after; its wall per view-pass printed beside the
+   sequential runner's (phases 3 and 7).
+12. direct: the one-round scene through
+   ``scene.run_scene_batched(use_volumes=False)``, the direct-warp path,
+   and the flagship APD pass with ``volumes=None`` once, its stages timed
+   with a device synchronise around each; every launch counter of H1-H8
+   must stay at 0 over each run; phase 3's checks, and the flagship's
+   median relative depth error < 0.01 over interior pixels and the weak
+   box. The walls per view-pass of phases 3, 7, 11 and 12 in one line.
 
 Then it prints the ``kernels`` JSON line (launches: H1, H2 and H4 from
 phase 3, H5-H6 from phase 7, H3, H7 and H8 from phase 5; times in device
-time where the script takes it), the card's name and power limit, and last
+time where the script takes it; phases 11 and 12 launch no other kernel),
+the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the rest
 of the repository beside it, it fails before printing any result.
 """
@@ -153,6 +171,7 @@ F32_FLOPS = 67e12
 OPS_H1, OPS_H2_SAMPLE, OPS_H2_OUT, OPS_H2_REF, OPS_H4 = 22, 17, 46, 3, 60
 
 W, H, V, K = 640, 480, 5, 160
+W2, H2 = 1280, 960  # the two-round scene
 
 
 def log(msg: str) -> None:
@@ -814,13 +833,67 @@ def _median_plane_distance(coords, planes):
     return float(np.median(dist)) if len(coords) else float("inf")
 
 
-def phase_main_path(dev, inputs):
-    import numpy as np
+def _run_counted(runner, *args, **kwargs):
+    """``runner(*args, **kwargs)`` with every launch counter set to 0 just
+    before and read just after; returns (result, wall seconds, launches)."""
     import torch
+
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = runner(*args, **kwargs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, wall, {name: fn.launches for name, fn in counters.items()}
+
+
+def _one_round_checks(tag, folder, depths, planes_s, ply):
+    """The one-round scene's checks: every view's depth map finite at
+    640x480 with a median relative error < 0.01 on interior pixels; > 1000
+    fused points at a median point-to-plane distance < 0.05."""
+    import numpy as np
+
+    from apdmvs_tpu_torch.io import formats
+
+    errs = []
+    for v in range(V):
+        d = formats.read_bin_mat(os.path.join(folder, "APD", formats.to_format_index(v),
+                                              "depths.dmb"))
+        if d.shape != (H, W) or not np.isfinite(d).all():
+            raise AssertionError(f"{tag}: view {v} depth map {d.shape} not finite/expected shape")
+        gt = depths[v]
+        m = np.zeros_like(gt, bool)
+        m[10:-10, 10:-10] = gt[10:-10, 10:-10] > 0
+        errs.append(float(np.median(np.abs(d - gt)[m] / gt[m])))
+    log(f"{tag}: median relative depth error per view "
+        + ", ".join(f"{e:.5f}" for e in errs) + " (tol < 0.01 each)")
+    if not max(errs) < 0.01:
+        raise AssertionError(f"{tag}: depth error above 0.01")
+    coords, _ = formats.read_point_cloud(ply)
+    med = _median_plane_distance(coords, planes_s)
+    log(f"{tag}: fused {len(coords)} points (tol > 1000), median plane distance "
+        f"{med:.5f} (tol < 0.05)")
+    if not (len(coords) > 1000 and med < 0.05 and np.isfinite(coords).all()):
+        raise AssertionError(f"{tag}: fused cloud fails the thresholds")
+
+
+def _check_launches(tag, launches, need):
+    missing = [n for n in need if launches[n] == 0]
+    if missing:
+        raise AssertionError(f"{tag}: kernels not launched: {missing}")
+    stray = [n for n in NOT_ON_MAIN_PATH if launches[n] != 0]
+    if stray:
+        raise AssertionError(f"{tag}: launched {stray}")
+
+
+def phase_main_path(dev, inputs):
+    """Phase 3; returns the launches, the per-pass view walls and the wall
+    per view-pass."""
+    import numpy as np
 
     from apdmvs_tpu_torch import scene
     from apdmvs_tpu_torch.datasets import synthetic
-    from apdmvs_tpu_torch.io import formats
 
     cams_s, planes_s, images, depths, _, _ = inputs
     folder = os.path.join(ROOT, "_smoke_scene")
@@ -828,14 +901,8 @@ def phase_main_path(dev, inputs):
     try:
         synthetic.write_mvsnet_dataset(folder, cams_s, planes_s, depth_ranges=(2.0, 8.0),
                                        images=images)
-        counters = _counters()
-        for fn in counters.values():
-            fn.launches = 0
-        t0 = time.perf_counter()
-        run = scene.run_scene(folder, device="cuda", verbose=False)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in counters.items()}
+        run, wall, launches = _run_counted(scene.run_scene, folder, device="cuda",
+                                           verbose=False)
         per_pass = {}
         for spec, problem, stats in run.passes:
             per_pass.setdefault(spec.pass_index, []).append(stats.seconds * 1e3)
@@ -844,34 +911,9 @@ def phase_main_path(dev, inputs):
                 + f" ms per view (mean {np.mean(ts):.1f} ms)")
         log(f"main path: {len(run.passes)} view-passes + fusion in {wall:.2f} s; launches "
             + json.dumps(launches))
-        missing = [n for n in ONE_ROUND_KERNELS if launches[n] == 0]
-        if missing:
-            raise AssertionError(f"kernels not launched on the main path: {missing}")
-        stray = [n for n in NOT_ON_MAIN_PATH if launches[n] != 0]
-        if stray:
-            raise AssertionError(f"the main path launched {stray}")
-
-        errs = []
-        for v in range(V):
-            d = formats.read_bin_mat(os.path.join(folder, "APD", formats.to_format_index(v),
-                                                  "depths.dmb"))
-            if d.shape != (H, W) or not np.isfinite(d).all():
-                raise AssertionError(f"view {v}: depth map {d.shape} not finite/expected shape")
-            gt = depths[v]
-            m = np.zeros_like(gt, bool)
-            m[10:-10, 10:-10] = gt[10:-10, 10:-10] > 0
-            errs.append(float(np.median(np.abs(d - gt)[m] / gt[m])))
-        log("main path: median relative depth error per view "
-            + ", ".join(f"{e:.5f}" for e in errs) + " (tol < 0.01 each)")
-        if not max(errs) < 0.01:
-            raise AssertionError("depth error above 0.01")
-        coords, _ = formats.read_point_cloud(run.ply)
-        med = _median_plane_distance(coords, planes_s)
-        log(f"main path: fused {len(coords)} points (tol > 1000), median plane distance "
-            f"{med:.5f} (tol < 0.05)")
-        if not (len(coords) > 1000 and med < 0.05 and np.isfinite(coords).all()):
-            raise AssertionError("fused cloud fails the thresholds")
-        return launches, per_pass
+        _check_launches("main path", launches, ONE_ROUND_KERNELS)
+        _one_round_checks("main path", folder, depths, planes_s, run.ply)
+        return launches, per_pass, 1e3 * wall / len(run.passes)
     finally:
         shutil.rmtree(folder, ignore_errors=True)
 
@@ -1519,27 +1561,79 @@ def _erode(mask, r):
     return out
 
 
-def phase_two_rounds(dev, folder):
-    """A 1280x960 five-view scene with a textureless window (focal 1600: the
-    field of view of the reference package's weak-path test scene) written to
-    ``folder`` and run through ``scene.run_scene``: two rounds, the second
-    with the APD weak machinery. Leaves its outputs in ``folder`` for the
-    fusion phase; returns the launches and the scene's planes."""
-    import numpy as np
-    import torch
-
-    from apdmvs_tpu_torch import geometry, ncc, scene
+def _two_round_scene(folder):
+    """The 1280x960 five-view scene with a textureless window (focal 1600:
+    the field of view of the reference package's weak-path test scene),
+    written to ``folder``; returns its images, depths and planes."""
     from apdmvs_tpu_torch.datasets import synthetic
-    from apdmvs_tpu_torch.io import formats
     from apdmvs_tpu_torch.params import compute_round_num
 
-    W2, H2 = 1280, 960
     cams_s, planes_s = synthetic.make_ring_scene(num_views=V, width=W2, height=H2, focal=1600.0,
                                                  include_flat_region=True)
     images, depths, _ = synthetic.render_scene(cams_s, planes_s)
     rounds = compute_round_num(W2, H2)
     if rounds != 2:
         raise AssertionError(f"compute_round_num gives {rounds} rounds, not 2")
+    shutil.rmtree(folder, ignore_errors=True)
+    synthetic.write_mvsnet_dataset(folder, cams_s, planes_s, depth_ranges=(2.0, 8.0),
+                                   images=images)
+    return cams_s, images, depths, planes_s
+
+
+def _two_round_checks(tag, folder, images, depths, planes_s, run, launches):
+    """Phase 7's checks: H1, H2, H4, H5, H6 launched and no stray entry;
+    > 1000 weak pixels enter round 1's REFINE_INIT pass of view 0; per-view
+    median relative depth error < 0.01 on interior pixels, < 0.02 on view
+    0's textureless core; > 1000 fused points at a median point-to-plane
+    distance < 0.05."""
+    import numpy as np
+
+    from apdmvs_tpu_torch.io import formats
+
+    _check_launches(tag, launches, TWO_ROUND_KERNELS)
+    weak_in = next(st for spec, problem, st in run.passes
+                   if spec.round_index == 1 and spec.state.name == "REFINE_INIT"
+                   and problem.ref_image_id == 0).weak_in
+    log(f"{tag}: {weak_in} weak pixels enter round 1's REFINE_INIT pass of view 0 "
+        "(tol > 1000)")
+    if not weak_in > 1000:
+        raise AssertionError(f"{tag}: too few weak pixels enter round 1")
+    errs, d0 = [], None
+    interior = np.zeros((H2, W2), bool)
+    interior[10:-10, 10:-10] = True
+    for v in range(V):
+        d = formats.read_bin_mat(os.path.join(folder, "APD", formats.to_format_index(v),
+                                              "depths.dmb"))
+        if d.shape != (H2, W2) or not np.isfinite(d).all():
+            raise AssertionError(f"{tag}: view {v} depth map {d.shape} not finite/expected shape")
+        errs.append(_depth_errors(d, depths[v], interior))
+        d0 = d if v == 0 else d0
+    flat_core = _erode(np.abs(images[0] - 128.0) < 1e-3, 8)
+    e_flat = _depth_errors(d0, depths[0], flat_core)
+    log(f"{tag}: median relative depth error per view "
+        + ", ".join(f"{e:.5f}" for e in errs) + f" (tol < 0.01 each); view 0 flat core "
+        f"({int(flat_core.sum())} px) {e_flat:.5f} (tol < 0.02)")
+    if not (max(errs) < 0.01 and e_flat < 0.02):
+        raise AssertionError(f"{tag}: depth checks fail")
+    coords, _ = formats.read_point_cloud(run.ply)
+    med = _median_plane_distance(coords, planes_s)
+    log(f"{tag}: fused {len(coords)} points (tol > 1000), median plane distance "
+        f"{med:.5f} (tol < 0.05)")
+    if not (len(coords) > 1000 and med < 0.05 and np.isfinite(coords).all()):
+        raise AssertionError(f"{tag}: fused cloud fails the thresholds")
+
+
+def phase_two_rounds(dev, folder):
+    """The two-round scene through ``scene.run_scene``: two rounds, the
+    second with the APD weak machinery. Leaves its outputs in ``folder``
+    for the fusion phase; returns the launches, the scene's planes and the
+    wall per view-pass."""
+    import numpy as np
+    import torch
+
+    from apdmvs_tpu_torch import geometry, ncc, scene
+
+    cams_s, images, depths, planes_s = _two_round_scene(folder)
     cams = geometry.make_cameras(
         np.stack([c.K for c in cams_s]), np.stack([c.R for c in cams_s]),
         np.stack([c.t for c in cams_s]), np.full(V, 1.2), np.full(V, 9.6), device=dev)
@@ -1556,18 +1650,8 @@ def phase_two_rounds(dev, folder):
     del vs, imgs
     torch.cuda.empty_cache()
 
-    shutil.rmtree(folder, ignore_errors=True)
-    synthetic.write_mvsnet_dataset(folder, cams_s, planes_s, depth_ranges=(2.0, 8.0),
-                                   images=images)
-    counters = _counters()
-    for fn in counters.values():
-        fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    run = scene.run_scene(folder, device="cuda", verbose=False)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
+    run, wall, launches = _run_counted(scene.run_scene, folder, device="cuda", verbose=False)
     per_pass = {}
     for spec, problem, stats in run.passes:
         per_pass.setdefault((spec.round_index, spec.pass_index, spec.state.name),
@@ -1579,44 +1663,8 @@ def phase_two_rounds(dev, folder):
     log(f"two rounds: {len(run.passes)} view-passes + fusion in {wall:.2f} s, peak device "
         f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
         + json.dumps(launches))
-    missing = [n for n in TWO_ROUND_KERNELS if launches[n] == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the two-round scene: {missing}")
-    stray = [n for n in NOT_ON_MAIN_PATH if launches[n] != 0]
-    if stray:
-        raise AssertionError(f"the two-round scene launched {stray}")
-    weak_in = next(st for spec, problem, st in run.passes
-                   if spec.round_index == 1 and spec.state.name == "REFINE_INIT"
-                   and problem.ref_image_id == 0).weak_in
-    log(f"two rounds: {weak_in} weak pixels enter round 1's REFINE_INIT pass of view 0 "
-        "(tol > 1000)")
-    if not weak_in > 1000:
-        raise AssertionError("too few weak pixels enter round 1")
-
-    errs, d0 = [], None
-    interior = np.zeros((H2, W2), bool)
-    interior[10:-10, 10:-10] = True
-    for v in range(V):
-        d = formats.read_bin_mat(os.path.join(folder, "APD", formats.to_format_index(v),
-                                              "depths.dmb"))
-        if d.shape != (H2, W2) or not np.isfinite(d).all():
-            raise AssertionError(f"view {v}: depth map {d.shape} not finite/expected shape")
-        errs.append(_depth_errors(d, depths[v], interior))
-        d0 = d if v == 0 else d0
-    flat_core = _erode(np.abs(images[0] - 128.0) < 1e-3, 8)
-    e_flat = _depth_errors(d0, depths[0], flat_core)
-    log("two rounds: median relative depth error per view "
-        + ", ".join(f"{e:.5f}" for e in errs) + f" (tol < 0.01 each); view 0 flat core "
-        f"({int(flat_core.sum())} px) {e_flat:.5f} (tol < 0.02)")
-    if not (max(errs) < 0.01 and e_flat < 0.02):
-        raise AssertionError("two-round scene fails its depth checks")
-    coords, _ = formats.read_point_cloud(run.ply)
-    med = _median_plane_distance(coords, planes_s)
-    log(f"two rounds: fused {len(coords)} points (tol > 1000), median plane distance "
-        f"{med:.5f} (tol < 0.05)")
-    if not (len(coords) > 1000 and med < 0.05 and np.isfinite(coords).all()):
-        raise AssertionError("fused cloud fails the thresholds")
-    return launches, planes_s
+    _two_round_checks("two rounds", folder, images, depths, planes_s, run, launches)
+    return launches, planes_s, 1e3 * wall / len(run.passes)
 
 
 def phase_quality(dev):
@@ -1708,16 +1756,189 @@ def phase_fusion(dev, folder, planes):
 
 def phase_bench(dev):
     """``python -m apdmvs_tpu_torch.bench``'s measurement (its defaults:
-    640x480x5, 5 repeats); its JSON line is printed."""
+    640x480x5, 5 repeats, 4 batched problems); its JSON line is printed."""
     import torch
 
     from apdmvs_tpu_torch import bench
 
     row, out = bench.measure(device=dev)
-    if not (row["value"] > 0 and bool(torch.isfinite(out.depth).all())):
+    if not (row["value"] > 0 and row["batched_maps_per_sec"] > 0
+            and bool(torch.isfinite(out.depth).all())):
         raise AssertionError(f"bench gives {row['value']} depth-maps/s or non-finite depths")
+    log(f"bench: {row['value']:.4f} depth-maps/s (flagship pass {row['pass_ms']:.2f} ms); "
+        f"batched_maps_per_sec {row['batched_maps_per_sec']:.4f} ({row['batched_problems']} "
+        f"problems, {row['batched_pinned']} sets pinned, batch pass {row['batched_ms']:.2f} ms, "
+        f"pinned sets built in {row['batched_prebuild_ms']:.2f} ms)")
     print(json.dumps(row), flush=True)
     return row
+
+
+def _log_batched_passes(tag, run):
+    """One line a pass of a batched run: the batch's wall (the per-view
+    stats carry it divided over the views) and the WEAK pixels in."""
+    seen = {}
+    for spec, problem, st in run.passes:
+        seen.setdefault((spec.round_index, spec.pass_index, spec.state.name), []).append(st)
+    for (r, p, state), sts in seen.items():
+        log(f"{tag}: round {r} pass {p} {state}: batch of {len(sts)} views "
+            f"{sum(st.seconds for st in sts) * 1e3:.1f} ms; weak in "
+            + ", ".join(str(st.weak_in) for st in sts))
+
+
+def _batched_run(folder, **kwargs):
+    """``scene.run_scene_batched`` on the card with its report captured; its
+    volume-cache lines (the sets pinned per scale) are logged."""
+    import contextlib
+    import io
+
+    from apdmvs_tpu_torch import scene
+
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):
+        run = scene.run_scene_batched(folder, device="cuda", **kwargs)
+    for ln in report.getvalue().splitlines():
+        if ln.startswith("volume cache"):
+            log(f"batched runner: {ln}")
+    return run
+
+
+def phase_batched(dev, inputs, walls):
+    """Phase 11: the one-round 640x480x5 scene and the 1280x960 two-round
+    scene through ``scene.run_scene_batched`` on the card, each with the
+    launch counters zeroed just before and read just after, held to the
+    checks of phases 3 and 7; the walls per view-pass beside theirs
+    (``walls``)."""
+    from apdmvs_tpu_torch.datasets import synthetic
+
+    cams_s, planes_s, images, depths, _, _ = inputs
+    folder = os.path.join(ROOT, "_smoke_batched")
+    shutil.rmtree(folder, ignore_errors=True)
+    try:
+        synthetic.write_mvsnet_dataset(folder, cams_s, planes_s, depth_ranges=(2.0, 8.0),
+                                       images=images)
+        run, wall, launches = _run_counted(_batched_run, folder)
+        _log_batched_passes("batched", run)
+        ms = 1e3 * wall / len(run.passes)
+        log(f"batched: {len(run.passes)} view-passes + fusion in {wall:.2f} s, {ms:.1f} ms a "
+            f"view-pass (sequential, phase 3: {walls['one round']:.1f}); launches "
+            + json.dumps(launches))
+        _check_launches("batched", launches, ONE_ROUND_KERNELS)
+        _one_round_checks("batched", folder, depths, planes_s, run.ply)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+
+    folder = os.path.join(ROOT, "_smoke_batched_2r")
+    try:
+        _, images2, depths2, planes2 = _two_round_scene(folder)
+        run, wall, launches = _run_counted(_batched_run, folder)
+        _log_batched_passes("batched two rounds", run)
+        ms2 = 1e3 * wall / len(run.passes)
+        log(f"batched two rounds: {len(run.passes)} view-passes + fusion in {wall:.2f} s, "
+            f"{ms2:.1f} ms a view-pass (sequential, phase 7: {walls['two rounds']:.1f}); "
+            "launches " + json.dumps(launches))
+        _two_round_checks("batched two rounds", folder, images2, depths2, planes2, run,
+                          launches)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    return ms, ms2
+
+
+#: the direct-warp pass's stages, by the module attribute the pass calls
+DIRECT_STAGES = (("ncc", "initial_cost_and_views"), ("ncc", "recost_selected_views"),
+                 ("weak", "generate_anchors"), ("propagation", "propagate_strong_color"),
+                 ("weak", "propagate_weak"), ("classify", "depth_to_weak"),
+                 ("classify", "local_refine"))
+
+
+def _stage_timed(fn):
+    """``fn`` timed per stage (a device synchronise before and after each
+    call of a stage of DIRECT_STAGES); returns (fn's result, ms per stage)."""
+    import importlib
+
+    import torch
+
+    ms = {}
+    saved = []
+    for mod_name, attr in DIRECT_STAGES:
+        mod = importlib.import_module(f"apdmvs_tpu_torch.{mod_name}")
+        inner = getattr(mod, attr)
+
+        def timed(*args, _inner=inner, _name=attr, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _inner(*args, **kwargs)
+            torch.cuda.synchronize()
+            ms[_name] = ms.get(_name, 0.0) + 1e3 * (time.perf_counter() - t0)
+            return out
+
+        saved.append((mod, attr, inner))
+        setattr(mod, attr, timed)
+    try:
+        return fn(), ms
+    finally:
+        for mod, attr, inner in saved:
+            setattr(mod, attr, inner)
+
+
+def phase_direct(dev, inputs, walls):
+    """Phase 12: the one-round 640x480x5 scene through
+    ``scene.run_scene_batched(use_volumes=False)``, then the flagship APD
+    pass with ``volumes=None`` once (its stages timed), each with the launch
+    counters zeroed just before and read just after: every counter must stay
+    at 0; phase 3's checks, and the flagship's median relative depth error <
+    0.01 over interior pixels and over the weak box."""
+    import numpy as np
+    import torch
+
+    from apdmvs_tpu_torch import bench, pipeline, rng
+    from apdmvs_tpu_torch.datasets import synthetic
+
+    cams_s, planes_s, images, depths, normals, cams = inputs
+    folder = os.path.join(ROOT, "_smoke_direct")
+    shutil.rmtree(folder, ignore_errors=True)
+    try:
+        synthetic.write_mvsnet_dataset(folder, cams_s, planes_s, depth_ranges=(2.0, 8.0),
+                                       images=images)
+        run, wall, launches = _run_counted(_batched_run, folder, use_volumes=False)
+        _log_batched_passes("direct", run)
+        ms = 1e3 * wall / len(run.passes)
+        log(f"direct: {len(run.passes)} view-passes + fusion in {wall:.2f} s, {ms:.1f} ms a "
+            f"view-pass (volume path batched, phase 11: {walls['batched']:.1f}); launches "
+            + json.dumps(launches))
+        if any(launches.values()):
+            raise AssertionError(f"the direct-warp path launched a kernel: {launches}")
+        _one_round_checks("direct", folder, depths, planes_s, run.ply)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+
+    prior, cap = bench.flagship_prior(depths, normals, V, dev)
+    sv = torch.arange(V, device=dev) > 0
+
+    def flagship():
+        return pipeline.patchmatch_pass(
+            cams, sv, prior, rng.TorchDraws(1, H, W, dev), bench.FLAGSHIP_CFG,
+            weak_capacity=cap, ransac_threshold=bench.FLAGSHIP_RTH,
+            images=torch.as_tensor(images, device=dev),
+            depth_maps=torch.as_tensor(depths, device=dev))
+
+    (out, stages), wall, launches = _run_counted(_stage_timed, flagship)
+    log(f"direct flagship pass (REFINE_ITER + geom + APD, {W}x{H}x{V}, worklist {cap}, no "
+        f"volumes): {1e3 * wall:.1f} ms with a device synchronise around each stage; stages "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in stages.items()) + "; launches "
+        + json.dumps(launches))
+    if any(launches.values()):
+        raise AssertionError(f"the direct flagship pass launched a kernel: {launches}")
+    d = out.depth.cpu().numpy()
+    interior = np.zeros((H, W), bool)
+    interior[10:-10, 10:-10] = True
+    box = np.zeros((H, W), bool)
+    box[H // 2 - H // 8:H // 2 + H // 8, W // 2 - W // 8:W // 2 + W // 8] = True
+    e_int, e_box = _depth_errors(d, depths[0], interior), _depth_errors(d, depths[0], box)
+    log(f"direct flagship pass: median relative depth error interior {e_int:.5f}, weak box "
+        f"{e_box:.5f} (tol < 0.01 each)")
+    if not (np.isfinite(d).all() and e_int < 0.01 and e_box < 0.01):
+        raise AssertionError("the direct flagship pass fails its depth checks")
+    return ms
 
 
 def main() -> int:
@@ -1735,7 +1956,8 @@ def main() -> int:
     phase_build()
     inputs = make_inputs(dev)
     rows = phase_kernels(dev, inputs)
-    launches, _ = phase_main_path(dev, inputs)
+    walls = {}
+    launches, _, walls["one round"] = phase_main_path(dev, inputs)
     flag = flagship_state(dev, inputs)
     cols_rows, worklist = phase_cols(dev, inputs, flag)
     rows += cols_rows
@@ -1747,13 +1969,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     folder_2r = os.path.join(ROOT, "_smoke_scene_2r")
     try:
-        launches_2r, planes_2r = phase_two_rounds(dev, folder_2r)
+        launches_2r, planes_2r, walls["two rounds"] = phase_two_rounds(dev, folder_2r)
         phase_fusion(dev, folder_2r, planes_2r)
     finally:
         shutil.rmtree(folder_2r, ignore_errors=True)
     torch.cuda.empty_cache()
     phase_quality(dev)
     phase_bench(dev)
+    torch.cuda.empty_cache()
+    walls["batched"], walls["batched two rounds"] = phase_batched(dev, inputs, walls)
+    torch.cuda.empty_cache()
+    walls["direct"] = phase_direct(dev, inputs, walls)
+    log("walls per view-pass (ms, host clock ending in a device synchronise): "
+        + json.dumps({k: round(v, 1) for k, v in walls.items()}))
     # each kernel's launches on its slice's main path: H1, H2 and H4 (both
     # wrappers of each) on the one-round 640x480 scene, H5-H6 on the two-round
     # 1280x960 scene, H3, H7, H8 in the ops phase

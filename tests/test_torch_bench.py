@@ -1,5 +1,6 @@
 """The port's benchmark (``python -m apdmvs_tpu_torch.bench``) on the CPU at
-64x48, one repeat: one JSON line with the benchmark's keys, the flagship
+64x48, one repeat, one batched problem: one JSON line with the benchmark's
+keys (the batched row's included), the flagship
 pass's setup as bench.py sets it up (weak box, worklist capacity, sample
 count), and no run on a machine without a card unless the CPU is asked
 for."""
@@ -16,12 +17,14 @@ from apdmvs_tpu_torch import bench, trace_pass
 from apdmvs_tpu_torch.params import PixelState
 
 KEYS = {"metric", "value", "unit", "min", "spread_pct", "pass_ms", "image_build_ms",
-        "depth_build_ms", "device"}
+        "depth_build_ms", "device", "batched_maps_per_sec", "batched_problems",
+        "batched_pinned", "batched_ms", "batched_prebuild_ms"}
 
 
 def test_bench_prints_one_json_line(capsys):
     torch.set_num_threads(2)
-    bench.main(["--device", "cpu", "--width", "64", "--height", "48", "--repeats", "1"])
+    bench.main(["--device", "cpu", "--width", "64", "--height", "48", "--repeats", "1",
+                "--batched-problems", "1"])
     out = capsys.readouterr().out.strip().splitlines()
     assert len(out) == 1
     row = json.loads(out[0])
@@ -30,6 +33,10 @@ def test_bench_prints_one_json_line(capsys):
     assert row["value"] > 0 and row["min"] == row["value"] and row["spread_pct"] == 0.0
     build = row["image_build_ms"] / 4 + row["depth_build_ms"]
     assert row["value"] == pytest.approx(1e3 / (build + row["pass_ms"]))
+    # the batched row (one copy of the flagship problem here, its set pinned)
+    assert (row["batched_problems"], row["batched_pinned"]) == (1, 1)
+    assert row["batched_maps_per_sec"] == pytest.approx(
+        1e3 / (row["batched_ms"] + row["batched_prebuild_ms"] / 4))
 
 
 def test_flagship_state_is_bench_py_s():

@@ -40,7 +40,8 @@ def test_port_has_modules():
                 "weak", "ops/volume", "ops/ncc_volume", "ops/cols", "ops/cost_volume",
                 "ops/_build", "io/formats", "io/images",
                 "io/render", "datasets/synthetic", "native/__init__", "eval",
-                "fusion_device", "bench", "quality_table", "datasets/colmap"):
+                "fusion_device", "bench", "quality_table", "datasets/colmap",
+                "parallel/__init__", "parallel/sharded"):
         assert f"apdmvs_tpu_torch/{mod}.py" in rel, mod
 
 
