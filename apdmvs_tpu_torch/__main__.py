@@ -1,9 +1,14 @@
 """CLI: ``python -m apdmvs_tpu_torch <dense_folder> [--device cpu]
-[--batched] [--no-volumes]`` — the reference's ``./APD <dense_folder>``
-(main.cpp:140-153). Runs on the CUDA card unless ``--device cpu`` is given;
-with no card it fails. ``--batched`` runs every view of a pass as one batch
-(``scene.run_scene_batched``), ``--no-volumes`` the direct-warp path; they
-combine as in ``apdmvs_tpu/__main__.py:134-160``."""
+[--batched [--view-shards N] [--space-shards S]] [--no-volumes]`` — the
+reference's ``./APD <dense_folder>`` (main.cpp:140-153). Runs on the CUDA
+card unless ``--device cpu`` is given; with no card it fails. ``--batched``
+runs every view of a pass as one batch (``scene.run_scene_batched``) on a
+(view, space) mesh, ``--no-volumes`` the direct-warp path; with
+``--coordinator host:port --num-processes P --process-id i`` (or the
+``APD_COORDINATOR`` / ``APD_NUM_PROCESSES`` / ``APD_PROCESS_ID``
+variables) P such commands run one batched reconstruction together over
+``torch.distributed`` (``--dist-backend gloo`` for processes that share a
+card). They combine as in ``apdmvs_tpu/__main__.py:84-160``."""
 
 from __future__ import annotations
 
@@ -49,7 +54,28 @@ def main(argv=None) -> None:
                     help="run all views of each pass as one batch on the device "
                     "(scene.run_scene_batched; geometric passes read the previous pass's "
                     "depths)")
+    ap.add_argument("--view-shards", type=int, default=None,
+                    help="--batched: view rows of the device mesh (default: the cards of "
+                    "all processes over --space-shards, at most the view count); a "
+                    "device may hold several shards")
+    ap.add_argument("--space-shards", type=int, default=1,
+                    help="--batched: row slabs of each view's volumes, over the devices of "
+                    "a view row")
+    ap.add_argument("--coordinator", default=None,
+                    help="--batched over several processes: the address host:port of process "
+                    "0's rendezvous; run the same command in every process with "
+                    "--num-processes/--process-id (or export APD_COORDINATOR / "
+                    "APD_NUM_PROCESSES / APD_PROCESS_ID)")
+    ap.add_argument("--num-processes", type=int, default=None)
+    ap.add_argument("--process-id", type=int, default=None)
+    ap.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                    help="torch.distributed backend (default nccl on cards, gloo on the CPU); "
+                    "gloo lets several processes share one card")
     args = ap.parse_args(argv)
+    many = (args.coordinator or args.num_processes is not None
+            or args.process_id is not None)
+    if not args.batched and ((args.view_shards or 1) != 1 or args.space_shards != 1 or many):
+        ap.error("--view-shards, --space-shards and several processes need --batched")
 
     common = dict(
         seed=args.seed,
@@ -65,9 +91,18 @@ def main(argv=None) -> None:
         use_volumes=not args.no_volumes,
     )
     if args.batched:
+        from apdmvs_tpu_torch.parallel import multihost
+
         if args.allow_missing_prior:
             ap.error("--allow-missing-prior applies to the sequential runner only")
-        scene.run_scene_batched(args.dense_folder, **common)
+        multihost.maybe_initialize(args.coordinator, args.num_processes, args.process_id,
+                                   backend=args.dist_backend,
+                                   device=scene.resolve_device(args.device))
+        try:
+            scene.run_scene_batched(args.dense_folder, n_view_shards=args.view_shards,
+                                    n_space_shards=args.space_shards, **common)
+        finally:
+            multihost.shutdown()
     else:
         scene.run_scene(args.dense_folder, allow_missing_prior=args.allow_missing_prior,
                         **common)

@@ -192,7 +192,7 @@ def measure_batched(images, depths, normals, cams, n: int, repeats: int,
         return parallel.sharded_batch_pass(
             imgs_b, cams_b, sv_b, prior_b, draws, np.full(n, FLAGSHIP_RTH), FLAGSHIP_CFG,
             weak_capacity=cap, all_depths=depths_t, src_index=src_index, use_volumes=True,
-            num_slices=num_slices, prebuilt=pinned)
+            num_slices=num_slices, prebuilt=[pinned])
 
     batch(0)
     times = []

@@ -13,7 +13,11 @@ chunk's NCC term is one H2 launch over E (the reference rebases the
 volumes on the chunk's mid step first, which changes no cost) and its
 geometric term one H4 launch over the depth volumes. Without volumes both
 terms warp directly, every source view at once (the reference package's
-sweep with ``use_sweep`` false, ``apdmvs_tpu/classify.py:104-138``).
+sweep with ``use_sweep`` false, ``apdmvs_tpu/classify.py:104-138``). A
+spaced volume set takes the same ``cost_vector`` route as the reference
+package's spaced contexts do (``apdmvs_tpu/classify.py:104-108``); in the
+port both routes are H2 from E, so the harness alone changes (one launch
+per slab, ``ncc._spaced_grid_call``).
 """
 
 from __future__ import annotations

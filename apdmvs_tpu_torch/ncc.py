@@ -24,7 +24,14 @@ APD.cu:752-789). Two paths evaluate the same costs:
   bf16 copy, as the reference package does. The volume path never falls
   back to it: a volume context carries no images.
 
-The space-sharded volumes of the reference package are not ported.
+A spaced set (``parallel/spaced.py``: one VolumeSet per row slab, each
+on its own device; ``apdmvs_tpu/ncc.py:788-1136``) is built by
+:func:`build_volume_set_spaced` and evaluated slab by slab through the
+same kernels (:func:`_spaced_grid_call`); the results are stitched back
+on the pass's device and equal the unsharded evaluation bit for bit. The
+reference package's ``rebase_volume_set_spaced`` (``:1083-1136``) has no
+counterpart: the port builds no rebased volume, and H2 from each slab's E
+gives the same costs.
 
 Costs are "1 - NCC" clamped to [0, 2]; degenerate patches and out-of-view
 warps cost 2. Index v of every per-view result is camera v; entry 0 (the
@@ -68,6 +75,12 @@ class VolumeSet(NamedTuple):
     geom_consts: Optional[torch.Tensor] = None
     C36: Optional[torch.Tensor] = None
     C9: Optional[torch.Tensor] = None
+
+    @property
+    def spaced(self) -> bool:
+        """False: one set over the whole image (``parallel.spaced`` holds
+        the row-slab form)."""
+        return False
 
     @property
     def num_slices(self) -> int:
@@ -154,31 +167,12 @@ def build_image_volume_set(images: torch.Tensor, cams: Cameras, depth_min, depth
                            num_slices: int = 160, weak_cost_volumes: bool = True) -> VolumeSet:
     """Image volumes E (one H1 launch per source view), consts, the padded
     reference image and, with ``weak_cost_volumes``, the cost volumes C36
-    and C9 of the weak machinery. They depend only on (images, cameras,
-    depth grid), so the scene runner builds them once per (problem, scale)
-    and reuses them across the round's passes."""
-    V, H, W = images.shape
-    Hp = _ceil_to(H, ncc_volume.NCC_TILE_H)
-    Wp = _ceil_to(W, ncc_volume.TILE_W)
-    wc = geometry.warp_constants(cams)
-    u_min, du = vol.inv_depth_grid(depth_min, depth_max, num_slices)
-    Es, consts = [], []
-    for v in range(1, V):
-        Es.append(vol.build_volume(
-            images[v], wc.M[v], wc.b[v], cams.K[0], Hp, Wp, u_min, du, num_slices,
-            pad_y=ncc_volume.PAD_Y, pad_x=ncc_volume.PAD_X, dtype=torch.bfloat16,
-        ))
-        consts.append(ncc_volume.pack_consts(cams.K[0], wc.M[v], wc.b[v], u_min, du, W, H))
-    ref_pad = _edge_pad(
-        images[0].float(), ncc_volume.PAD_Y, ncc_volume.PAD_Y + Hp - H,
-        ncc_volume.PAD_X, ncc_volume.PAD_X + Wp - W,
-    )
-    C36 = C9 = None
-    if weak_cost_volumes:
-        C36 = torch.stack([cost_volume.build_cost_volume(E, ref_pad, 5, 2) for E in Es])
-        C9 = torch.stack([cost_volume.build_cost_volume(E, ref_pad, 5, 5) for E in Es])
-    return VolumeSet(E=torch.stack(Es), consts=torch.stack(consts), ref_pad=ref_pad,
-                     C36=C36, C9=C9)
+    and C9 of the weak machinery: the one slab of :func:`_volume_slabs` on
+    the device of ``images``. They depend only on (images, cameras, depth
+    grid), so the scene runner builds them once per (problem, scale) and
+    reuses them across the round's passes."""
+    return _volume_slabs(images, cams, depth_min, depth_max, [images.device], num_slices,
+                         None, weak_cost_volumes)[0][0]
 
 
 def image_volume_set_nbytes(num_views: int, height: int, width: int, num_slices: int = 160,
@@ -198,19 +192,32 @@ def add_depth_volumes(vs: VolumeSet, depth_maps: torch.Tensor, cams: Cameras,
     """Attach the per-pass source-view depth volumes (H1 in trunc mode) and
     reprojection constants for geometric consistency."""
     V, H, W = depth_maps.shape
-    K = vs.num_slices
     Hp = vs.ref_pad.shape[0] - 2 * ncc_volume.PAD_Y
     Wp = vs.ref_pad.shape[1] - 2 * ncc_volume.PAD_X
+    u_min, du = vol.inv_depth_grid(depth_min, depth_max, vs.num_slices)
     wc = geometry.warp_constants(cams)
-    u_min, du = vol.inv_depth_grid(depth_min, depth_max, K)
+    return vs._replace(
+        D=_depth_volumes(depth_maps, wc.M, wc.b, cams.K[0], u_min, du, vs.num_slices, Hp, Wp),
+        geom_consts=_geom_consts(cams, u_min, du, W, H))
+
+
+def _depth_volumes(depth_maps, M, b, K_ref, u_min, du, K: int, Hp: int, Wp: int,
+                   row0: int = 0) -> torch.Tensor:
+    """[V-1, K, Hp, Wp] f32 depth volumes of the source views (H1, trunc
+    mode; warp constants M, b [V, ...]) over the rows [row0, row0 + Hp)."""
+    return torch.stack([vol.build_volume(
+        depth_maps[v], M[v], b[v], K_ref, Hp, Wp, u_min, du, K,
+        pad_y=0, pad_x=0, dtype=torch.float32, trunc=True, row0=row0,
+    ) for v in range(1, depth_maps.shape[0])])
+
+
+def _geom_consts(cams: Cameras, u_min, du, W: int, H: int) -> torch.Tensor:
+    """[V-1, 1, 33] reprojection constants of the source views (row0 0)."""
+    wc = geometry.warp_constants(cams)
     K_ref, R_ref = cams.K[0], cams.R[0]
     KR = geometry.mat3_mat3(K_ref, R_ref)
-    Ds, gconsts = [], []
-    for v in range(1, V):
-        Ds.append(vol.build_volume(
-            depth_maps[v], wc.M[v], wc.b[v], K_ref, Hp, Wp, u_min, du, K,
-            pad_y=0, pad_x=0, dtype=torch.float32, trunc=True,
-        ))
+    gconsts = []
+    for v in range(1, cams.K.shape[0]):
         A = geometry.mat3_mat3(
             geometry.mat3_mat3(KR, cams.R[v].transpose(-1, -2)),
             geometry.k_inverse_zero_skew(cams.K[v]),
@@ -218,7 +225,121 @@ def add_depth_volumes(vs: VolumeSet, depth_maps: torch.Tensor, cams: Cameras,
         t2 = geometry.mat3_vec(KR, cams.c[v] - cams.c[0])
         gconsts.append(ncc_volume.pack_geom_consts(
             K_ref, wc.M[v], wc.b[v], A, t2, u_min, du, W, H))
-    return vs._replace(D=torch.stack(Ds), geom_consts=torch.stack(gconsts))
+    return torch.stack(gconsts)
+
+
+# ---------------------------------------------------------------------------
+# Space-sharded (row-slab) volumes: ``apdmvs_tpu/ncc.py:788-1136``,
+# ``parallel/spaced.py``
+# ---------------------------------------------------------------------------
+
+
+def _with_row0(consts: torch.Tensor, row0: int, device) -> torch.Tensor:
+    """Packed constants [V-1, 1, n] with their last entry (row0) set, on
+    ``device``: every other constant is computed once, so all slabs carry
+    the same bits."""
+    out = consts.clone()
+    out[..., -1] = float(row0)
+    return out.to(device)
+
+
+def build_volume_set_spaced(images: torch.Tensor, cams: Cameras, depth_min, depth_max,
+                            devices, num_slices: int = 160,
+                            depth_maps: Optional[torch.Tensor] = None,
+                            weak_cost_volumes: bool = True):
+    """The volumes of :func:`build_image_volume_set` (and, with
+    ``depth_maps``, of :func:`add_depth_volumes`) as ``S = len(devices)``
+    row slabs, slab s on ``devices[s]`` (``apdmvs_tpu/ncc.py:824-963``);
+    returns a ``parallel.spaced.SpacedVolumeSet``. ``devices[0]`` must be
+    the device of ``images``, where the pass runs."""
+    from apdmvs_tpu_torch.parallel.spaced import SpacedVolumeSet
+
+    devices = [torch.device(d) for d in devices]
+    if devices[0] != images.device:
+        raise ValueError(f"slab 0 must live on the pass's device {images.device}, "
+                         f"not {devices[0]}")
+    slabs, Hs, Hp, Wp = _volume_slabs(images, cams, depth_min, depth_max, devices, num_slices,
+                                      depth_maps, weak_cost_volumes)
+    return SpacedVolumeSet(slabs=tuple(slabs), Hs=Hs, Hp=Hp, Wp=Wp)
+
+
+def _volume_slabs(images, cams: Cameras, depth_min, depth_max, devices, num_slices: int,
+                  depth_maps, weak_cost_volumes: bool):
+    """One VolumeSet per row slab, slab s on ``devices[s]``; returns
+    (slabs, Hs, Hp, Wp). Slab s owns the interior rows [s*Hs, (s+1)*Hs) of
+    the padded grid, Hp = ceil(H, NCC_TILE_H * S), Wp = ceil(W, TILE_W),
+    and stores PAD_Y halo rows on each side: E (and D, with
+    ``depth_maps``) through H1 with ``row0 = s*Hs`` (exact: an integer
+    below 2^24 in float32), the consts with row0 at their last index, the
+    reference slab cut from the globally edge-padded reference image, C36
+    and C9 built on the slab. E, D and the interior rows of C36 and C9
+    equal the rows of one slab over the whole grid bit for bit; C36 and C9
+    rows within the window radius of an inner slab edge carry the slab's
+    own clamped sums, and no lookup reads them (``weak.build_weak_cols``
+    takes each row from the slab that owns it)."""
+    V, H, W = images.shape
+    S = len(devices)
+    PAD_Y, PAD_X = ncc_volume.PAD_Y, ncc_volume.PAD_X
+    Hp = _ceil_to(H, ncc_volume.NCC_TILE_H * S)
+    Hs = Hp // S
+    Wp = _ceil_to(W, ncc_volume.TILE_W)
+    u_min, du = vol.inv_depth_grid(depth_min, depth_max, num_slices)
+    wc = geometry.warp_constants(cams)
+    consts = torch.stack([ncc_volume.pack_consts(cams.K[0], wc.M[v], wc.b[v], u_min, du, W, H)
+                          for v in range(1, V)])
+    ref_pad = _edge_pad(images[0].float(), PAD_Y, PAD_Y + Hp - H, PAD_X, PAD_X + Wp - W)
+    gconsts = None if depth_maps is None else _geom_consts(cams, u_min, du, W, H)
+    slabs = []
+    for s, dev in enumerate(devices):
+        row0 = s * Hs
+        M, b, K_ref = wc.M.to(dev), wc.b.to(dev), cams.K[0].to(dev)
+        E = torch.stack([vol.build_volume(
+            images[v].to(dev), M[v], b[v], K_ref, Hs, Wp, u_min, du, num_slices,
+            pad_y=PAD_Y, pad_x=PAD_X, dtype=torch.bfloat16, row0=row0,
+        ) for v in range(1, V)])
+        ref_slab = ref_pad[row0:row0 + Hs + 2 * PAD_Y].to(dev, copy=True)
+        C36 = C9 = None
+        if weak_cost_volumes:
+            C36 = torch.stack([cost_volume.build_cost_volume(e, ref_slab, 5, 2) for e in E])
+            C9 = torch.stack([cost_volume.build_cost_volume(e, ref_slab, 5, 5) for e in E])
+        slab = VolumeSet(E=E, consts=_with_row0(consts, row0, dev), ref_pad=ref_slab,
+                         C36=C36, C9=C9)
+        if depth_maps is not None:
+            slab = slab._replace(
+                D=_depth_volumes(depth_maps.to(dev), M, b, K_ref, u_min, du, num_slices, Hs,
+                                 Wp, row0=row0),
+                geom_consts=_with_row0(gconsts, row0, dev))
+        slabs.append(slab)
+    return slabs, Hs, Hp, Wp
+
+
+def first_slab(vs) -> VolumeSet:
+    """``vs`` itself, or slab 0 of a spaced set: the copy of the fields
+    that are the same in every slab (every constant but row0, the slice
+    grid, which volumes the set carries), on the pass's device."""
+    return vs.slabs[0] if vs.spaced else vs
+
+
+def _spaced_grid_call(ctx: CostContext, plane: torch.Tensor, evaluate, pad_value=COST_MAX):
+    """The spaced form of :func:`_grid_eval` (``apdmvs_tpu/ncc.py:966-1026``):
+    pad the plane fields onto the (Hp, Wp) grid, cut each slab's rows, move
+    them to the slab's device, evaluate (``evaluate(slab, planes_cf) ->
+    [V-1, C, Hs, Wp]``), move the result back to the pass's device and
+    stitch the rows. Slabs that hold no image row are not evaluated."""
+    vs = ctx.volumes
+    H, W = ctx.height, ctx.width
+    squeeze = plane.dim() == 3
+    if squeeze:
+        plane = plane[None]
+    planes_cf = _pad_planes_cf(plane, vs.Hp, vs.Wp)
+    outs = []
+    for s, slab in enumerate(vs.slabs):
+        r0, r1 = vs.slab_rows(s)
+        if r0 >= H:
+            break
+        outs.append(evaluate(slab, planes_cf[:, :, r0:r1].to(slab.E.device)).to(plane.device))
+    costs = _with_ref_view(ctx, torch.cat(outs, dim=2)[:, :, :H, :W], pad_value)
+    return costs[:, 0] if squeeze else costs
 
 
 def _base_slice_map(vs: VolumeSet, depth: torch.Tensor) -> torch.Tensor:
@@ -469,6 +590,9 @@ def point_cost_volume(ctx: CostContext, plane: torch.Tensor, xs: torch.Tensor,
     oob), each [V, ..., P(, A)]; view 0 and the invalid views cost
     COST_MAX, view 0 counts as out of bounds."""
     vs = ctx.volumes
+    if vs.spaced:
+        raise ValueError("point-mode cost-volume reads index whole volumes; a spaced set's "
+                         "weak machinery reads its resident columns (weak.build_weak_cols)")
     C = vs.C36 if which == "C36" else vs.C9
     u_min, du = vs.u_grid
     dirs = geometry.pixel_dirs(ctx.cams.K[0], xs.to(torch.float32), ys.to(torch.float32))
@@ -495,9 +619,15 @@ def cost_vector(ctx: CostContext, plane: torch.Tensor, radius: int, increment: i
     once."""
     vs = ctx.volumes
     if xs is None and vs is not None:
-        return _grid_eval(ctx, plane, lambda planes_cf: ncc_volume.ncc_cost_views(
-            vs.E, vs.ref_pad, planes_cf, vs.consts, vs.num_slices,
-            radius=radius, increment=increment))
+        def views(sl, planes_cf):
+            return ncc_volume.ncc_cost_views(sl.E, sl.ref_pad, planes_cf, sl.consts,
+                                             sl.num_slices, radius=radius, increment=increment)
+
+        if vs.spaced:  # one H2 launch per slab (apdmvs_tpu/ncc.py:1029-1062)
+            return _spaced_grid_call(ctx, plane, views)
+        return _grid_eval(ctx, plane, lambda planes_cf: views(vs, planes_cf))
+    if xs is not None and vs is not None and vs.spaced:
+        raise ValueError("a spaced set evaluates full grids only")
     if (xs is not None and vs is not None and vs.C36 is not None
             and (radius, increment) in ((5, 2), (5, 5))):
         costs, _ = point_cost_volume(ctx, plane, xs, ys,
@@ -546,10 +676,18 @@ def geom_cost_vector(ctx: CostContext, plane: torch.Tensor,
     every evaluation reprojects directly (:func:`geom_cost_view`)."""
     vs = ctx.volumes
     if xs is None and vs is not None:
-        if vs.D is None:
+        if first_slab(vs).D is None:
             raise ValueError("a geometric pass needs depth volumes (add_depth_volumes)")
-        return _grid_eval(ctx, plane, lambda planes_cf: ncc_volume.geom_cost_views(
-            vs.D, planes_cf, vs.geom_consts, vs.num_slices), pad_value=GEOM_COST_MAX)
+
+        def views(sl, planes_cf):
+            return ncc_volume.geom_cost_views(sl.D, planes_cf, sl.geom_consts, sl.num_slices)
+
+        if vs.spaced:  # one H4 launch per slab (apdmvs_tpu/ncc.py:1065-1080)
+            return _spaced_grid_call(ctx, plane, views, pad_value=GEOM_COST_MAX)
+        return _grid_eval(ctx, plane, lambda planes_cf: views(vs, planes_cf),
+                          pad_value=GEOM_COST_MAX)
+    if xs is not None and vs is not None and vs.spaced:
+        raise ValueError("a spaced set evaluates full grids only")
     return _with_ref_view(ctx, geom_cost_view(ctx, _source_views(ctx), plane, xs, ys),
                           GEOM_COST_MAX)
 
@@ -585,11 +723,14 @@ def recost_selected_views(ctx: CostContext, plane, selected, radius: int, increm
     return cost, ok
 
 
-def view_consts(vs: VolumeSet) -> torch.Tensor:
-    """[V-1, 21] per-source-view warp constants (row v-1 = camera v)."""
-    return vs.consts[:, 0]
+def view_consts(vs) -> torch.Tensor:
+    """[V-1, 21] per-source-view warp constants (row v-1 = camera v); of a
+    spaced set slab 0's copy (``apdmvs_tpu/ncc.py:792-801``): only row0
+    (index 20) differs between slabs, and no caller of this reads it."""
+    return first_slab(vs).consts[:, 0]
 
 
-def view_geom_consts(vs: VolumeSet) -> torch.Tensor:
-    """[V-1, 33] per-source-view reprojection constants."""
-    return vs.geom_consts[:, 0]
+def view_geom_consts(vs) -> torch.Tensor:
+    """[V-1, 33] per-source-view reprojection constants (slab 0's copy of a
+    spaced set, as :func:`view_consts`)."""
+    return first_slab(vs).geom_consts[:, 0]

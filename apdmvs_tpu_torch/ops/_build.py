@@ -125,6 +125,16 @@ def load(name: str, signatures: Dict[str, List]) -> ctypes.CDLL:
         return lib
 
 
+def on_device(t):
+    """The context every launch runs in: ``t``'s card made the current
+    device, so a kernel loaded through ``ctypes`` (which launches in the
+    current CUDA context) runs where its tensors live, whatever card the
+    caller has current. On the current card it changes nothing."""
+    import torch
+
+    return torch.cuda.device(t.device)
+
+
 def check(err: int, kernel: str) -> None:
     """Raise if a launch returned a CUDA error code."""
     if err != 0:

@@ -131,10 +131,11 @@ def gather_cols(vol, xs, ys, pad_y: int, pad_x: int) -> torch.Tensor:
     if M == 0:
         return out
     lib = _build.load("gather_cols", _GATHER_SIG)
-    err = lib.gather_cols_launch(
-        vol.data_ptr(), xs.data_ptr(), ys.data_ptr(), Vs * K, PH, PW, M, pad_y, pad_x,
-        vol.element_size(), out.data_ptr(), torch.cuda.current_stream(vol.device).cuda_stream,
-    )
+    with _build.on_device(vol):
+        err = lib.gather_cols_launch(
+            vol.data_ptr(), xs.data_ptr(), ys.data_ptr(), Vs * K, PH, PW, M, pad_y, pad_x,
+            vol.element_size(), out.data_ptr(), torch.cuda.current_stream(vol.device).cuda_stream,
+        )
     _build.check(err, "gather_cols")
     gather_cols.launches += 1
     return out
@@ -179,10 +180,11 @@ def _gather_rows(table: torch.Tensor, idx: torch.Tensor, wrapper) -> torch.Tenso
     table = table.contiguous()
     idx = idx.contiguous()  # int32 or int64 as it comes: the kernel reads either
     lib = _build.load("gather_rows", _ROWS_SIG)
-    err = lib.gather_rows_launch(
-        table.data_ptr(), idx.data_ptr(), idx.element_size(), R, M, C * table.element_size(),
-        out.data_ptr(), torch.cuda.current_stream(table.device).cuda_stream,
-    )
+    with _build.on_device(table):
+        err = lib.gather_rows_launch(
+            table.data_ptr(), idx.data_ptr(), idx.element_size(), R, M, C * table.element_size(),
+            out.data_ptr(), torch.cuda.current_stream(table.device).cuda_stream,
+        )
     _build.check(err, "gather_rows")
     wrapper.launches += 1
     return out
@@ -258,11 +260,12 @@ def contract_lookup(cols_t, k, nearest: bool = False) -> torch.Tensor:
     if R == 0 or B == 0:
         return out
     lib = _build.load("contract_lookup", _CONTRACT_SIG)
-    err = lib.contract_lookup_launch(
-        cols_t.data_ptr(), k.data_ptr(), Vs, K, R, B, int(nearest),
-        int(cols_t.dtype == torch.bfloat16), out.data_ptr(),
-        torch.cuda.current_stream(k.device).cuda_stream,
-    )
+    with _build.on_device(k):
+        err = lib.contract_lookup_launch(
+            cols_t.data_ptr(), k.data_ptr(), Vs, K, R, B, int(nearest),
+            int(cols_t.dtype == torch.bfloat16), out.data_ptr(),
+            torch.cuda.current_stream(k.device).cuda_stream,
+        )
     _build.check(err, "contract_lookup")
     contract_lookup.launches += 1
     return out

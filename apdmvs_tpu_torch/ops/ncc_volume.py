@@ -229,11 +229,12 @@ def _launch_ncc(E, ref_pad, planes, consts, num_slices: int, radius: int,
     planes, consts = planes.contiguous(), consts.contiguous()
     out = torch.empty((NV, C, H, W), dtype=torch.float32, device=E.device)
     lib = _build.load("ncc_cost", _NCC_SIG)
-    err = lib.ncc_cost_launch(
-        E.data_ptr(), ref_pad.data_ptr(), planes.data_ptr(), consts.data_ptr(),
-        NV, C, H, W, num_slices, radius, increment,
-        out.data_ptr(), torch.cuda.current_stream(E.device).cuda_stream,
-    )
+    with _build.on_device(E):
+        err = lib.ncc_cost_launch(
+            E.data_ptr(), ref_pad.data_ptr(), planes.data_ptr(), consts.data_ptr(),
+            NV, C, H, W, num_slices, radius, increment,
+            out.data_ptr(), torch.cuda.current_stream(E.device).cuda_stream,
+        )
     _build.check(err, "ncc_cost")
     return out
 
@@ -374,10 +375,11 @@ def build_rebased_view(E_pad, base_k, num_slices: int, j2: int = J2_REBASE):
     bf = torch.empty((PH, PW), dtype=torch.float32, device=E_pad.device)
     ptrs = (E_pad.data_ptr(), base_k.data_ptr(), R.data_ptr(), bf.data_ptr())
     lib = _build.load("rebase_view", _REBASE_SIG)
-    err = lib.rebase_view_launch(
-        ptrs[0], ptrs[1], K, P, j2, int(rebase_vector_path(P, *ptrs)), ptrs[2], ptrs[3],
-        torch.cuda.current_stream(E_pad.device).cuda_stream,
-    )
+    with _build.on_device(E_pad):
+        err = lib.rebase_view_launch(
+            ptrs[0], ptrs[1], K, P, j2, int(rebase_vector_path(P, *ptrs)), ptrs[2], ptrs[3],
+            torch.cuda.current_stream(E_pad.device).cuda_stream,
+        )
     _build.check(err, "rebase_view")
     build_rebased_view.launches += 1
     return R, bf
@@ -485,10 +487,11 @@ def _launch_geom(D, planes, consts, num_slices: int) -> torch.Tensor:
     D, planes, consts = D.contiguous(), planes.contiguous(), consts.contiguous()
     out = torch.empty((NV, C, H, W), dtype=torch.float32, device=D.device)
     lib = _build.load("geom_cost", _GEOM_SIG)
-    err = lib.geom_cost_launch(
-        D.data_ptr(), planes.data_ptr(), consts.data_ptr(), NV, C, H, W, num_slices,
-        out.data_ptr(), torch.cuda.current_stream(D.device).cuda_stream,
-    )
+    with _build.on_device(D):
+        err = lib.geom_cost_launch(
+            D.data_ptr(), planes.data_ptr(), consts.data_ptr(), NV, C, H, W, num_slices,
+            out.data_ptr(), torch.cuda.current_stream(D.device).cuda_stream,
+        )
     _build.check(err, "geom_cost")
     return out
 

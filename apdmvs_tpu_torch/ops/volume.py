@@ -92,10 +92,16 @@ _SIG = {
 def build_volume(
     src_image, M, b, K0, height: int, width: int, u_min, du, num_slices: int,
     pad_y: int = 8, pad_x: int = 128, dtype=torch.bfloat16, trunc: bool = False,
+    row0: int = 0,
 ) -> torch.Tensor:
     """Kernel H1 wrapper (for the TPU kernel ``_build_kernel``): the volume
     of :func:`build_volume_padded`. ``dtype`` must be bf16 for the
-    bilinear mode and f32 for ``trunc``."""
+    bilinear mode and f32 for ``trunc``. ``row0`` is the global row of the
+    volume's first interior row (a row slab of a spaced set,
+    ``ncc.build_volume_set_spaced``); an integer below 2^24, so the
+    kernel's ``(py - pad_y) + row0`` in float32 is exact."""
+    if not 0 <= row0 < 2 ** 24 or int(row0) != row0:
+        raise ValueError(f"row0 must be an integer in [0, 2^24), got {row0}")
     if src_image.dim() != 2 or src_image.dtype != torch.float32:
         raise ValueError("src_image must be a [H, W] float32 tensor")
     if dtype != (torch.float32 if trunc else torch.bfloat16):
@@ -103,7 +109,7 @@ def build_volume(
     if src_image.device.type == "cpu":
         return build_volume_padded(
             src_image, M, b, K0, height, width, u_min, du, num_slices,
-            pad_y=pad_y, pad_x=pad_x, dtype=dtype, trunc=trunc,
+            pad_y=pad_y, pad_x=pad_x, dtype=dtype, trunc=trunc, row0=float(row0),
         )
     if src_image.device.type != "cuda":
         raise ValueError(f"unsupported device {src_image.device}")
@@ -119,11 +125,12 @@ def build_volume(
     PH, PW = height + 2 * pad_y, width + 2 * pad_x
     out = torch.empty((num_slices, PH, PW), dtype=dtype, device=dev)
     lib = _build.load("build_volume", _SIG)
-    err = lib.build_volume_launch(
-        src.data_ptr(), src.shape[0], src.shape[1], params.data_ptr(),
-        num_slices, PH, PW, pad_y, pad_x, 0.0, int(trunc), out.data_ptr(),
-        torch.cuda.current_stream(src.device).cuda_stream,
-    )
+    with _build.on_device(src):
+        err = lib.build_volume_launch(
+            src.data_ptr(), src.shape[0], src.shape[1], params.data_ptr(),
+            num_slices, PH, PW, pad_y, pad_x, float(row0), int(trunc), out.data_ptr(),
+            torch.cuda.current_stream(src.device).cuda_stream,
+        )
     _build.check(err, "build_volume")
     build_volume.launches += 1
     return out
@@ -176,10 +183,11 @@ def volume_sample(E: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     if H * W == 0:
         return out
     lib = _build.load("volume_sample", _SAMPLE_SIG)
-    err = lib.volume_sample_launch(
-        E.data_ptr(), k.data_ptr(), K, H * W, int(E.dtype == torch.bfloat16), out.data_ptr(),
-        torch.cuda.current_stream(E.device).cuda_stream,
-    )
+    with _build.on_device(E):
+        err = lib.volume_sample_launch(
+            E.data_ptr(), k.data_ptr(), K, H * W, int(E.dtype == torch.bfloat16), out.data_ptr(),
+            torch.cuda.current_stream(E.device).cuda_stream,
+        )
     _build.check(err, "volume_sample")
     volume_sample.launches += 1
     return out

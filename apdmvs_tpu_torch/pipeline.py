@@ -67,7 +67,7 @@ def patchmatch_pass(
     prior: PassState,
     draws,
     cfg: PassConfig,
-    volumes: Optional[ncc.VolumeSet] = None,  # image volumes (+ depth volumes on geom passes)
+    volumes=None,  # VolumeSet or SpacedVolumeSet (+ depth volumes on geom passes)
     weak_capacity: int = 0,
     ransac_threshold: float = 0.005,
     images: Optional[torch.Tensor] = None,  # [V, H, W], the direct-warp path's input
@@ -78,7 +78,11 @@ def patchmatch_pass(
     ``cfg.geom_consistency``, and C36 and C9 when the pass runs the weak
     machinery (``cfg.use_APD`` and ``weak_capacity`` > 0). Without volumes
     the pass reads ``images`` and, when ``cfg.geom_consistency``,
-    ``depth_maps`` (entry 0 unused); they are ignored on the volume path."""
+    ``depth_maps`` (entry 0 unused); they are ignored on the volume path.
+    ``volumes`` may be a spaced set (``ncc.build_volume_set_spaced``, slab 0
+    on the pass's device): every grid evaluation then runs slab by slab and
+    the weak columns are gathered per slab (``apdmvs_tpu/pipeline.py:112-116``),
+    with the outputs of the unsharded set."""
     if volumes is None:
         if images is None:
             raise ValueError("a pass without volumes needs the images (the direct-warp path)")
@@ -86,7 +90,7 @@ def patchmatch_pass(
             raise ValueError("a geometric pass without volumes needs the source depth maps")
         ctx_inputs = dict(images=images, depth_maps=depth_maps if cfg.geom_consistency else None)
     else:
-        if cfg.geom_consistency and volumes.D is None:
+        if cfg.geom_consistency and ncc.first_slab(volumes).D is None:
             raise ValueError("a geometric pass needs depth volumes (ncc.add_depth_volumes)")
         ctx_inputs = {}
     H, W = prior.depth.shape

@@ -560,41 +560,50 @@ def run_scene_batched(
     use_volumes: bool = True,
     num_slices: int = 160,
     volume_cache_gb: float = 6.0,
+    devices=None,
 ) -> SceneRun:
     """Batched reconstruction (``apdmvs_tpu/scene.py:485-890``): every
-    reference view of a pass runs as one batch on ``device``
-    (``parallel.sharded_batch_pass``), the state stays on the device between
+    reference view of a pass runs as one batch on a (view, space) mesh
+    (``parallel.make_mesh(n_view_shards, n_space_shards, devices, device)``;
+    ``n_view_shards`` None: the cards of all processes over
+    ``n_space_shards``, at most the problem count), through
+    ``parallel.sharded_batch_pass``; the state stays on the device between
     passes and is persisted per pass (the checkpoint contract of
     :func:`run_scene`, with the same JPEGs). Returns a :class:`SceneRun`
-    whose per-view stats carry the batch's wall divided over its views.
+    whose per-view stats, of this process's problems, carry the batch's
+    wall divided over its views.
 
-    Per pass: stacked inputs [N, V, H, W] (padding views take the reference
-    camera and are invalid); the prior resampled on the device between
-    scales; one host read of the batch's WEAK counts sizes one worklist
-    capacity for all problems (a problem without weak pixels runs the weak
-    branch on an all-padding worklist) and one read of "any depth > 0"
-    gates geometry; problem i draws from ``rng.pass_seed(seed, pass, i)``,
-    as the sequential runner does, so a FIRST_INIT pass equals its. A
-    geometric pass reads the previous pass's depth stack (Jacobi; the
-    sequential runner is Gauss-Seidel, both the reference package's own
-    semantics). Image volumes (``use_volumes``, on by default on every
-    device) are pinned once per scale within ``volume_cache_gb``, per
-    problem: the first M sets that fit, one set held back for the loop's
-    own build when not all do; the rest are rebuilt every pass.
+    Per pass: stacked inputs [L, V, H, W] of this process's L problems
+    (padding views take the reference camera and are invalid); the prior
+    resampled on the device between scales; the batch's largest WEAK count
+    sizes one worklist capacity for all problems of every process (a
+    problem without weak pixels runs the weak branch on an all-padding
+    worklist) and "any depth > 0" over every process gates geometry, both
+    agreed through ``parallel.multihost``, since the capacity sizes the
+    RANSAC draws; problem i draws from ``rng.pass_seed(seed, pass, i)`` on
+    its row's device, as the sequential runner does, so a FIRST_INIT pass
+    equals its on any mesh. A geometric pass reads the previous pass's
+    depth stack of every process (Jacobi; the sequential runner is
+    Gauss-Seidel, both the reference package's own semantics). Image
+    volumes (``use_volumes``, on by default on every device) are pinned
+    once per scale within ``volume_cache_gb`` a device, per problem: each
+    view row's first M sets that fit, one set held back for the loop's own
+    build when not all do; the rest are rebuilt every pass. A space mesh
+    pins nothing: its slabs are built every pass. Each process persists
+    its own problems' files; after a barrier, process 0 alone fuses.
 
     A schedule whose first pass is not FIRST_INIT raises (the reference
-    package re-initialises there silently). ``n_view_shards`` or
-    ``n_space_shards`` above 1 is multi-GPU work and raises."""
+    package re-initialises there silently)."""
     from apdmvs_tpu_torch import parallel
+    from apdmvs_tpu_torch.parallel import multihost
 
-    if (n_view_shards or 1) != 1 or n_space_shards != 1:
-        raise NotImplementedError("--view-shards / --space-shards above 1 is multi-GPU work "
-                                  "(ROADMAP queue 1 item 5); the port runs one card")
     device = resolve_device(device)
     if fusion_variant not in FUSION_VARIANTS:
         raise ValueError(f"unknown fusion variant {fusion_variant!r}")
     dense_folder = str(dense_folder)
     problems = generate_sample_list(dense_folder)
+    lead = multihost.rank() == 0
+    report, verbose = verbose, verbose and lead
     if verbose:
         print(f"There are {len(problems)} problems needed to be processed!")
     full_size = check_images(dense_folder, problems)
@@ -607,73 +616,85 @@ def run_scene_batched(
         print(f"Round num: {round_num}")
     cache = SceneCache(dense_folder, camera_model=camera_model)
     N = len(problems)
+    if n_view_shards is None:
+        n_view_shards = parallel.default_view_shards(device, n_space_shards, N)
+    mesh = parallel.make_mesh(n_view_shards, n_space_shards, devices=devices, device=device)
+    for r in mesh.local_rows():
+        for d in mesh.devices[r]:
+            resolve_device(d)
+    local = mesh.local_problems(N)
+    counts = mesh.problem_counts(N)
+    if 0 in counts:
+        raise ValueError(f"{N} problems on a {mesh.describe()} leave process "
+                         f"{counts.index(0)} without a problem; ask for fewer view shards")
+    home = mesh.devices[mesh.local_rows()[0]][0]
+    mesh_note = (f"{mesh.describe()} on " + ", ".join(
+        str(d) for r in mesh.local_rows() for d in mesh.devices[r])
+        + (f", {multihost.world_size()} processes" if multihost.world_size() > 1 else ""))
     V = max(1 + len(p.src_image_ids) for p in problems)
     id_to_pos = {p.ref_image_id: i for i, p in enumerate(problems)}
-    src_index = np.array([[id_to_pos.get(vid, n) for vid in [p.ref_image_id] + p.src_image_ids]
-                          + [n] * (V - 1 - len(p.src_image_ids))
-                          for n, p in enumerate(problems)], np.int64)
+    src_index = np.array([[id_to_pos.get(vid, n) for vid in [problems[n].ref_image_id]
+                           + problems[n].src_image_ids]
+                          + [n] * (V - 1 - len(problems[n].src_image_ids))
+                          for n in local], np.int64)
     state: Optional[pipeline.PassState] = None
-    vol_cache: Dict[Tuple[int, int], Optional[ncc.VolumeSet]] = {}
+    vol_cache: Dict[Tuple[int, int], Optional[list]] = {}
     passes = []
     for spec in build_schedule(round_num):
         t0 = time.perf_counter()
         W, H = scaled_size(*full_size, spec.scale_size)
-        inps = [_problem_inputs(cache, p, W, H, full_size, V) for p in problems]
-        images = torch.as_tensor(np.stack([i.images for i in inps]), device=device)
+        inps = [_problem_inputs(cache, problems[n], W, H, full_size, V) for n in local]
+        L = len(inps)
+        images = torch.as_tensor(np.stack([i.images for i in inps]), device=home)
         dmins = np.array([i.dmin for i in inps], np.float32)
         dmaxs = np.array([i.dmax for i in inps], np.float32)
         cams = geometry.make_cameras(
             np.stack([i.K for i in inps]), np.stack([i.R for i in inps]),
             np.stack([i.t for i in inps]), np.repeat(dmins[:, None], V, 1),
-            np.repeat(dmaxs[:, None], V, 1), device=device)
-        src_valid = torch.as_tensor(np.stack([i.src_valid for i in inps]), device=device)
+            np.repeat(dmaxs[:, None], V, 1), device=home)
+        src_valid = torch.as_tensor(np.stack([i.src_valid for i in inps]), device=home)
 
         if state is None:
             if spec.state != RunState.FIRST_INIT:
                 raise ValueError(f"the batched runner's first pass must be FIRST_INIT, not "
                                  f"{spec.state.name}: there is no prior state to refine")
-            prior = _empty_prior(V, H, W, device, lead=(N,))
+            prior = _empty_prior(V, H, W, home, lead=(L,))
         else:
             prior = _resample_nearest(state, H, W)
 
         eff = spec
         weak_capacity = 0
-        weak_counts = np.zeros(N, np.int64)
+        weak_counts = np.zeros(L, np.int64)
         if eff.use_APD:
             weak_counts = torch.sum(prior.pixel_state == PixelState.WEAK, dim=(1, 2)).cpu().numpy()
-            weak_capacity = _bucket_capacity(int(weak_counts.max()), H * W)
+            weak_capacity = _bucket_capacity(multihost.all_reduce_max(int(weak_counts.max())),
+                                             H * W)
             if weak_capacity == 0:
                 eff = dataclasses.replace(eff, use_APD=False)
-        all_depths = prior.depth if eff.geom_consistency else None
-        if all_depths is not None and not bool((all_depths > 0).any()):
-            eff = dataclasses.replace(eff, geom_consistency=False)
-            all_depths = None
-        draws = [rng.TorchDraws(rng.pass_seed(seed, spec.pass_index, p.index), H, W, device)
-                 for p in problems]
+        all_depths = None
+        if eff.geom_consistency:
+            if multihost.any_positive(prior.depth):
+                all_depths = multihost.all_gather_rows(prior.depth, counts)
+            else:
+                eff = dataclasses.replace(eff, geom_consistency=False)
+        draws = [rng.TorchDraws(rng.pass_seed(seed, spec.pass_index, problems[n].index), H, W,
+                                mesh.problem_device(n, N)) for n in local]
 
         prebuilt = None
-        if use_volumes:
+        if use_volumes and mesh.n_space == 1:
             if (W, H) not in vol_cache:
                 vol_cache.clear()  # the schedule never revisits a finished scale
-                per_set = ncc.image_volume_set_nbytes(V, H, W, num_slices,
-                                                      weak_cost_volumes=spec.use_APD)
-                M = parallel.pinned_count(per_set, N, volume_cache_gb * 1e9)
-                if verbose:
-                    print(f"volume cache: pinning {M}/{N} problems' image-volume sets "
-                          f"({per_set / 1e9:.2f} GB each, budget {volume_cache_gb} GB)"
-                          + ("" if M == N else "; the rest rebuild every pass"))
-                vol_cache[(W, H)] = None if M == 0 else parallel.build_batch_image_volumes(
-                    images[:M], geometry.Cameras(*(f[:M] for f in cams)), num_slices,
-                    weak_cost_volumes=spec.use_APD)
+                vol_cache[(W, H)] = _pin_row_sets(mesh, N, images, cams, V, H, W, num_slices,
+                                                  spec.use_APD, volume_cache_gb, verbose)
             prebuilt = vol_cache[(W, H)]
 
         out = parallel.sharded_batch_pass(
-            images, cams, src_valid, prior, draws, np.full(N, eff.ransac_threshold),
+            images, cams, src_valid, prior, draws, np.full(L, eff.ransac_threshold),
             PassConfig.from_spec(eff), weak_capacity=weak_capacity, all_depths=all_depths,
             src_index=src_index if all_depths is not None else None, use_volumes=use_volumes,
-            num_slices=num_slices, prebuilt=prebuilt)
-        dmin_t = torch.as_tensor(dmins, device=device)[:, None, None]
-        dmax_t = torch.as_tensor(dmaxs, device=device)[:, None, None]
+            num_slices=num_slices, prebuilt=prebuilt, mesh=mesh, num_problems=N)
+        dmin_t = torch.as_tensor(dmins, device=home)[:, None, None]
+        dmax_t = torch.as_tensor(dmaxs, device=home)[:, None, None]
         bad = (out.depth < dmin_t) | (out.depth > dmax_t)
         state = pipeline.PassState(
             depth=torch.where(bad, 0.0, out.depth), normal_world=out.normal_world,
@@ -682,22 +703,89 @@ def run_scene_batched(
                                     out.pixel_state),
             selected=out.selected)
         weak_pcts = []
-        for n, p in enumerate(problems):
-            saved = _persist(p, spec, parallel.problem_row(state, n), float(dmins[n]),
-                             float(dmaxs[n]), show_medium_result)
+        for k, n in enumerate(local):
+            saved = _persist(problems[n], spec, parallel.problem_row(state, k), float(dmins[k]),
+                             float(dmaxs[k]), show_medium_result)
             weak_pcts.append(100.0 * float(np.mean(saved["weak"] == PixelState.WEAK)))
         seconds = time.perf_counter() - t0
-        for n, p in enumerate(problems):
-            passes.append((spec, p, ProblemStats(seconds=seconds / N, weak_pct=weak_pcts[n],
-                                                 weak_in=int(weak_counts[n]))))
+        for k, n in enumerate(local):
+            passes.append((spec, problems[n], ProblemStats(
+                seconds=seconds / L, weak_pct=weak_pcts[k], weak_in=int(weak_counts[k]))))
         if verbose:
             print(f"round {spec.round_index} pass {spec.pass_index} ({eff.state.name}, scale "
-                  f"1/{spec.scale_size}, {N} views batched on {device}): {seconds * 1000:.0f} "
-                  f"ms, weak {float(np.mean(weak_pcts)):.1f}%")
-    ply = run_fusion(dense_folder, problems, variant=fusion_variant, device=device)
-    if verbose:
-        print(f"Fused point cloud: {ply}")
-    if not keep_intermediates:
-        for p in problems:
-            shutil.rmtree(p.result_folder, ignore_errors=True)
+                  f"1/{spec.scale_size}, {N} views batched over {mesh_note}): "
+                  f"{seconds * 1000:.0f} ms, weak {float(np.mean(weak_pcts)):.1f}%")
+    if report and multihost.world_size() > 1:
+        print(f"process {multihost.rank()} of {multihost.world_size()}: persisted views "
+              + " ".join(str(problems[n].ref_image_id) for n in local), flush=True)
+    # every process's state files are on disk before fusion reads them
+    multihost.barrier()
+    ply = os.path.join(dense_folder, "APD", "APD.ply")
+    if lead:
+        ply = run_fusion(dense_folder, problems, variant=fusion_variant, device=home)
+        if verbose:
+            print(f"Fused point cloud: {ply}")
+        if not keep_intermediates:
+            for p in problems:
+                shutil.rmtree(p.result_folder, ignore_errors=True)
     return SceneRun(ply=ply, passes=passes)
+
+
+def _pin_row_sets(mesh, N: int, images, cams, V: int, H: int, W: int, num_slices: int,
+                  weak_cost_volumes: bool, volume_cache_gb: float, verbose: bool):
+    """The once-per-scale pinned image-volume sets of each of this
+    process's view rows (``parallel.build_batch_image_volumes`` on the
+    row's device), each row's first M problems that fit the row's share of
+    ``volume_cache_gb`` (rows sharing a device split its budget). Returns
+    the per-row list ``sharded_batch_pass`` takes (None: nothing pinned)."""
+    from apdmvs_tpu_torch import parallel
+
+    per_set = ncc.image_volume_set_nbytes(V, H, W, num_slices,
+                                          weak_cost_volumes=weak_cost_volumes)
+    rows = mesh.local_rows()
+    sharing = {}
+    for r in rows:
+        sharing[mesh.devices[r][0]] = sharing.get(mesh.devices[r][0], 0) + 1
+    pinned: list = [None] * mesh.n_view
+    total_m, a = 0, 0
+    for r in rows:
+        n = len(mesh.row_problems(r, N))
+        dev = mesh.devices[r][0]
+        M = parallel.pinned_count(per_set, n, volume_cache_gb * 1e9 / sharing[dev])
+        if M:
+            pinned[r] = parallel.build_batch_image_volumes(
+                images[a:a + M].to(dev), geometry.Cameras(*(f[a:a + M].to(dev) for f in cams)),
+                num_slices, weak_cost_volumes=weak_cost_volumes)
+        total_m += M
+        a += n
+    if verbose:
+        print(f"volume cache: pinning {total_m}/{a} problems' image-volume sets "
+              f"({per_set / 1e9:.2f} GB each, budget {volume_cache_gb} GB a device)"
+              + ("" if total_m == a else "; the rest rebuild every pass"))
+    return pinned
+
+
+def run_fusion_device_sharded(dense_folder, problems: Sequence[Problem], mesh=None,
+                              device="cuda", out_name: str = "APD_device.ply") -> str:
+    """The ETH fusion on the card with each view's pixel work and the
+    consumed masks row-sharded over the mesh's devices
+    (``fusion_device.fuse_eth_device``'s mesh mode; ``apdmvs_tpu/scene.py:
+    971-1000``). Collective: with several processes every process calls it;
+    process 0 writes ``APD/<out_name>``, every process returns its path.
+    ``mesh`` None takes one view row over this process's cards
+    (``parallel.make_mesh(world_size, cards)``)."""
+    from apdmvs_tpu_torch import fusion_device, parallel
+    from apdmvs_tpu_torch.parallel import multihost
+
+    dense_folder = str(dense_folder)
+    if mesh is None:
+        dev = resolve_device(device)
+        cards = (torch.cuda.device_count() if dev.type == "cuda" and multihost.world_size() == 1
+                 else 1)
+        mesh = parallel.make_mesh(multihost.world_size(), cards, device=dev)
+    views, src_ids = _load_fusion_views(dense_folder, problems)
+    coords, colors = fusion_device.fuse_eth_device(views, src_ids, mesh=mesh)
+    out_path = os.path.join(dense_folder, "APD", out_name)
+    if multihost.rank() == 0:
+        formats.export_point_cloud(out_path, coords, colors)
+    return out_path

@@ -28,8 +28,9 @@ deformation for textureless regions:
 
 All weak-pixel work runs over a compacted worklist [N] of WEAK pixels in
 raster order, padded with -1. Random numbers come from a draw source
-(``rng.py``). The space-sharded branches of the reference package are not
-ported.
+(``rng.py``). On a spaced volume set (``parallel/spaced.py``) the resident
+columns are gathered slab by slab and combined on the pass's device
+(:func:`_build_weak_cols_spaced`); everything after that is unchanged.
 
 One deliberate divergence: the reference package scatters worklist
 results with ``.at[iy, ix].set(..., mode="drop")`` and -1 for "no write",
@@ -175,11 +176,14 @@ class WeakCols(NamedTuple):
 
 
 def build_weak_cols(ctx: CostContext, weak_xy: torch.Tensor, anchors: AnchorData) -> WeakCols:
-    """Gather the pass's column sets (one H5 launch per volume)."""
+    """Gather the pass's column sets (one H5 launch per volume; per slab on
+    a spaced set)."""
     vs = ctx.volumes
-    if vs.C36 is None or vs.C9 is None:
+    if ncc.first_slab(vs).C36 is None or ncc.first_slab(vs).C9 is None:
         raise ValueError("the weak machinery needs the cost volumes C36 and C9 "
                          "(ncc.build_image_volume_set(weak_cost_volumes=True))")
+    if vs.spaced:
+        return _build_weak_cols_spaced(ctx, weak_xy, anchors)
     PY, PX = ncc_volume.PAD_Y, ncc_volume.PAD_X
     c36 = colsmod.gather_cols(vs.C36, weak_xy[:, 0], weak_xy[:, 1], PY, PX)
     a = anchors.coords[:, 1:]
@@ -187,6 +191,43 @@ def build_weak_cols(ctx: CostContext, weak_xy: torch.Tensor, anchors: AnchorData
     d = None
     if vs.D is not None:
         d = colsmod.gather_cols(vs.D, weak_xy[:, 0], weak_xy[:, 1], 0, 0)
+    return WeakCols(c36=c36, c9=c9, d=d)
+
+
+def _build_weak_cols_spaced(ctx: CostContext, weak_xy: torch.Tensor,
+                            anchors: AnchorData) -> WeakCols:
+    """The columns of :func:`build_weak_cols` from a spaced set
+    (``apdmvs_tpu/weak.py:214-287``): each slab gathers every position
+    through H5 in place with slab-local rows ``ys - row0`` (the reference
+    package reads K8's table entry instead), and each position takes the
+    value of the slab that owns its row (``parallel.spaced.slab_owner``).
+    The owner's rows, halos at the grid's edges included, equal the
+    unsharded volume's, and a selection keeps every bit where a sum over
+    the slabs, as the reference package's ``psum``, would turn -0.0 into
+    +0.0: the columns equal :func:`build_weak_cols`' bit for bit."""
+    from apdmvs_tpu_torch.parallel.spaced import slab_owner
+
+    vs = ctx.volumes
+    PY, PX = ncc_volume.PAD_Y, ncc_volume.PAD_X
+    a = anchors.coords[:, 1:]
+    home = weak_xy.device
+
+    def gather(field, xs, ys, pad_y, pad_x):
+        owner = slab_owner(ys, vs.Hs, vs.S)
+        out = None
+        for s, slab in enumerate(vs.slabs):
+            vol = getattr(slab, field)
+            r0 = vs.slab_rows(s)[0]
+            cols = colsmod.gather_cols(vol, xs.to(vol.device), (ys - r0).to(vol.device),
+                                       pad_y, pad_x).to(home)
+            out = cols if out is None else torch.where(owner == s, cols, out)
+        return out
+
+    c36 = gather("C36", weak_xy[:, 0], weak_xy[:, 1], PY, PX)
+    c9 = gather("C9", a[..., 0].reshape(-1), a[..., 1].reshape(-1), PY, PX)
+    d = None
+    if vs.slabs[0].D is not None:
+        d = gather("D", weak_xy[:, 0], weak_xy[:, 1], 0, 0)
     return WeakCols(c36=c36, c9=c9, d=d)
 
 
@@ -408,7 +449,7 @@ def deformed_cost_vector(ctx: CostContext, weak_xy, plane, anchors: AnchorData, 
         return _deformed_cost_vector_cols(ctx, weak_xy, plane, anchors, sel_at_anchor, wcols)
     if cfg is None:
         raise ValueError("the deformed cost without resident columns needs the pass's cfg")
-    if ctx.volumes is not None and ctx.volumes.C36 is not None:
+    if ctx.volumes is not None and ncc.first_slab(ctx.volumes).C36 is not None:
         return _deformed_cost_vector_volume(ctx, weak_xy, plane, anchors, selected_grid)
     return _deformed_cost_vector_direct(ctx, weak_xy, plane, anchors, selected_grid, cfg)
 

@@ -133,9 +133,27 @@ and no ``ok`` line is printed:
    must stay at 0 over each run; phase 3's checks, and the flagship's
    median relative depth error < 0.01 over interior pixels and the weak
    box. The walls per view-pass of phases 3, 7, 11 and 12 in one line.
+13. sharded: the two-round scene of phase 7 through
+   ``scene.run_scene_batched`` on a view 2 x space 2 mesh, all four shards
+   on cuda:0, with the launch counters zeroed (H1, H2, H4, H5, H6 must
+   launch, H3, H7, H8 and the one-view wrappers must not; phase 7's
+   checks), its state files held to phase 11's batched run of the same
+   scene (share of equal entries per field, at least the JAX package's
+   decision-level bounds: pixel_state 0.999, depth within 2e-3 0.995,
+   selected 0.995; whether all were equal is printed); the flagship APD
+   pass on a spaced set of S = 4 slabs against the unsharded pass with the
+   same draws, every field equal; the one-round scene in two processes on
+   cuda:0 (``python -m apdmvs_tpu_torch --batched --view-shards 2
+   --num-processes 2 ... --dist-backend gloo --fusion eth-device``), its
+   state files equal to phase 11's one-process batched run byte for byte,
+   each process persisting only its own views and process 0 alone fusing
+   on the card; and
+   ``fusion_device.fuse_eth_device`` in mesh mode (space 2 on cuda:0) on
+   the 2 x 2 run's outputs, equal to the one-device call, both timed.
 
 Then it prints the ``kernels`` JSON line (launches: H1, H2 and H4 from
-phase 3, H5-H6 from phase 7, H3, H7 and H8 from phase 5; times in device
+phase 3, H5-H6 from phase 7, H3, H7 and H8 from phase 5, and each
+kernel's ``sharded`` launches from phase 13's 2 x 2 run; times in device
 time where the script takes it; phases 11 and 12 launch no other kernel),
 the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the rest
@@ -720,6 +738,15 @@ OPS_KERNELS = ("volume_sample", "gather_rows", "gather_rows_sorted", "ncc_cost",
 # counters that no default path may advance: H2 and H4 one view at a time,
 # and H3
 NOT_ON_MAIN_PATH = ("ncc_cost", "rebase_view", "geom_cost")
+# counters the sharded runs must leave at 0 as well: H7 and H8
+NOT_ON_SHARDED_PATH = NOT_ON_MAIN_PATH + ("gather_rows", "gather_rows_sorted",
+                                          "volume_sample")
+STATE_FILES = ("depths.dmb", "normals.dmb", "weak.bin", "selected_views.bin")
+# the JAX package's decision-level bounds for a sharded run against an
+# unsharded one (tests/test_spaced_volumes.py:92-100): share of equal
+# pixel states, of depths within 2e-3 (relative and absolute), of equal
+# selected-view masks
+SHARDED_FLOORS = {"pixel_state": 0.999, "depth": 0.995, "selected": 0.995}
 # K10's two windows are BAND2 = 32 slices each (apdmvs_tpu/ops/ncc_volume.py:81)
 BAND2 = 32
 # grid_sample counts as computing volume_sample's function if it agrees with
@@ -1802,12 +1829,26 @@ def _batched_run(folder, **kwargs):
     return run
 
 
+def _state_files(folder):
+    """The bytes of every view's four state files, by (view, file name)."""
+    states = {}
+    root = os.path.join(folder, "APD")
+    for view in sorted(os.listdir(root)):
+        for name in STATE_FILES:
+            path = os.path.join(root, view, name)
+            if os.path.exists(path):
+                with open(path, "rb") as f:
+                    states[(view, name)] = f.read()
+    return states
+
+
 def phase_batched(dev, inputs, walls):
     """Phase 11: the one-round 640x480x5 scene and the 1280x960 two-round
     scene through ``scene.run_scene_batched`` on the card, each with the
     launch counters zeroed just before and read just after, held to the
     checks of phases 3 and 7; the walls per view-pass beside theirs
-    (``walls``)."""
+    (``walls``). Returns both walls and both runs' state files (phase 13
+    compares with them)."""
     from apdmvs_tpu_torch.datasets import synthetic
 
     cams_s, planes_s, images, depths, _, _ = inputs
@@ -1824,6 +1865,7 @@ def phase_batched(dev, inputs, walls):
             + json.dumps(launches))
         _check_launches("batched", launches, ONE_ROUND_KERNELS)
         _one_round_checks("batched", folder, depths, planes_s, run.ply)
+        states = {"one round": _state_files(folder)}
     finally:
         shutil.rmtree(folder, ignore_errors=True)
 
@@ -1838,9 +1880,10 @@ def phase_batched(dev, inputs, walls):
             "launches " + json.dumps(launches))
         _two_round_checks("batched two rounds", folder, images2, depths2, planes2, run,
                           launches)
+        states["two rounds"] = _state_files(folder)
     finally:
         shutil.rmtree(folder, ignore_errors=True)
-    return ms, ms2
+    return ms, ms2, states
 
 
 #: the direct-warp pass's stages, by the module attribute the pass calls
@@ -1941,6 +1984,222 @@ def phase_direct(dev, inputs, walls):
     return ms
 
 
+def _bin_mat(data: bytes):
+    """A state file's array from its bytes (``formats.read_bin_mat``)."""
+    import struct
+
+    import numpy as np
+
+    from apdmvs_tpu_torch.io import formats
+
+    _, rows, cols, cv_type = struct.unpack("<iiii", data[:16])
+    channels = (cv_type >> 3) + 1
+    arr = np.frombuffer(data[16:], dtype=formats._CV_DEPTH_TO_DTYPE[cv_type & 7])
+    return arr.reshape((rows, cols) if channels == 1 else (rows, cols, channels))
+
+
+def _agreement(tag, got, want):
+    """The share of equal entries per field of two runs' state files
+    (``_state_files``), held to SHARDED_FLOORS; returns whether every
+    file was byte-equal."""
+    import numpy as np
+
+    from apdmvs_tpu_torch import pipeline
+
+    if set(got) != set(want):
+        raise AssertionError(f"{tag}: state files differ: {sorted(set(got) ^ set(want))}")
+    byte_equal = all(got[k] == want[k] for k in want)
+    views = sorted({v for v, _ in want})
+    share = {"pixel_state": [], "depth": [], "selected": [], "normal": []}
+    for v in views:
+        a, b = (_bin_mat(x[(v, "weak.bin")]) for x in (got, want))
+        share["pixel_state"].append(float(np.mean(a == b)))
+        a, b = (_bin_mat(x[(v, "depths.dmb")]) for x in (got, want))
+        share["depth"].append(float(np.mean(np.isclose(a, b, rtol=2e-3, atol=2e-3))))
+        a, b = (_bin_mat(x[(v, "normals.dmb")]) for x in (got, want))
+        share["normal"].append(float(np.mean(a == b)))
+        a, b = (pipeline.bitmask_to_selected(_bin_mat(x[(v, "selected_views.bin")]), V)[1:]
+                for x in (got, want))
+        share["selected"].append(float(np.mean(a == b)))
+    low = {k: min(vals) for k, vals in share.items()}
+    log(f"{tag}: share of equal entries per field, lowest view: pixel_state "
+        f"{low['pixel_state']:.6f} (tol >= {SHARDED_FLOORS['pixel_state']}), depth within 2e-3 "
+        f"{low['depth']:.6f} (tol >= {SHARDED_FLOORS['depth']}), selected "
+        f"{low['selected']:.6f} (tol >= {SHARDED_FLOORS['selected']}), normals equal "
+        f"{low['normal']:.6f}; every state file byte-equal: {byte_equal}")
+    below = [k for k, floor in SHARDED_FLOORS.items() if low[k] < floor]
+    if below:
+        raise AssertionError(f"{tag}: below the decision-level bounds: {below}")
+    return byte_equal
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _two_processes(folder, dev, timeout=300):
+    """The one-round scene in ``folder`` through the CLI in two processes
+    sharing ``dev`` over gloo, process 0 fusing on the card after process 1
+    has left the group (``--fusion eth-device``); returns each process's output (standard
+    output and error, kept in ``folder``). A worker that fails or outlives
+    ``timeout`` seconds fails the phase, and both are stopped."""
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    logs = [os.path.join(folder, f"process{i}.log") for i in range(2)]
+    procs = []
+    for i, path in enumerate(logs):
+        with open(path, "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "apdmvs_tpu_torch", folder, "--device", str(dev),
+                 "--num-slices", str(K), "--batched", "--view-shards", "2",
+                 "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+                 "--process-id", str(i), "--dist-backend", "gloo", "--fusion", "eth-device"],
+                cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout
+    try:
+        for proc in procs:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    outs = []
+    for path in logs:
+        with open(path) as f:
+            outs.append(f.read())
+    for i, (proc, out) in enumerate(zip(procs, outs)):
+        if proc.returncode != 0:
+            raise AssertionError(f"two processes: process {i} exited {proc.returncode} "
+                                 f"(killed at the {timeout} s limit if negative):\n"
+                                 + out[-3000:])
+    return outs
+
+
+def phase_sharded(dev, inputs, states):
+    """Phase 13 (see the module docstring); ``states`` are phase 11's state
+    files. Returns the 2 x 2 run's launches and its wall per view-pass."""
+    import numpy as np
+    import torch
+
+    from apdmvs_tpu_torch import bench, fusion_device, ncc, parallel, scene
+    from apdmvs_tpu_torch.datasets import synthetic
+
+    # 1. the two-round scene on a view 2 x space 2 mesh of cuda:0
+    folder = os.path.join(ROOT, "_smoke_sharded")
+    try:
+        _, images2, depths2, planes2 = _two_round_scene(folder)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        run, wall, launches = _run_counted(_batched_run, folder, n_view_shards=2,
+                                           n_space_shards=2, devices=[dev] * 4)
+        _log_batched_passes("sharded 2x2", run)
+        ms = 1e3 * wall / len(run.passes)
+        log(f"sharded 2x2: {len(run.passes)} view-passes + fusion in {wall:.2f} s, {ms:.1f} ms "
+            f"a view-pass, peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+            "GB; launches " + json.dumps(launches))
+        stray = [n for n in NOT_ON_SHARDED_PATH if launches[n] != 0]
+        if stray:
+            raise AssertionError(f"sharded 2x2: launched {stray}")
+        _two_round_checks("sharded 2x2", folder, images2, depths2, planes2, run, launches)
+        _agreement("sharded 2x2 against phase 11", _state_files(folder), states["two rounds"])
+
+        problems = scene.generate_sample_list(folder)
+        views, src_ids = scene._load_fusion_views(folder, problems)
+        walls = {}
+        for name, kwargs in (("one device", {"device": dev}),
+                             ("mesh 1x2", {"mesh": parallel.make_mesh(1, 2, devices=[dev] * 2)})):
+            fusion_device.fuse_eth_device(views, src_ids, **kwargs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            walls[name] = fusion_device.fuse_eth_device(views, src_ids, **kwargs)
+            torch.cuda.synchronize()
+            walls[name] += (1e3 * (time.perf_counter() - t0),)
+        (c1, k1, ms1), (c2, k2, ms2) = walls["one device"], walls["mesh 1x2"]
+        same = (np.array_equal(c1, c2) and np.array_equal(k1, k2))
+        log(f"sharded fusion: eth-device {len(c1)} points in {ms1:.1f} ms on one device, "
+            f"{len(c2)} in {ms2:.1f} ms in mesh mode (space 2 on {dev}); points and colours "
+            f"equal: {same} (tol: equal)")
+        if not same or len(c1) < 1000:
+            raise AssertionError("the fusion's mesh mode disagrees with one device")
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # 2. the flagship APD pass on S = 4 slabs against the unsharded pass
+    _, _, images, depths, normals, cams = inputs
+    vs, prior, cap, _ = bench.flagship_state(images, depths, normals, cams, K)
+    ref = bench.flagship_pass(cams, vs, prior, cap, 1)
+    del vs
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sp = ncc.build_volume_set_spaced(torch.as_tensor(images, device=dev), cams, bench.DMIN,
+                                     bench.DMAX, [dev] * 4, num_slices=K,
+                                     depth_maps=torch.as_tensor(depths, device=dev))
+    torch.cuda.synchronize()
+    build_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    out = bench.flagship_pass(cams, sp, prior, cap, 1)
+    torch.cuda.synchronize()
+    pass_ms = 1e3 * (time.perf_counter() - t0)
+    equal = {f: bool(torch.equal(a, b)) for f, a, b in zip(ref._fields, ref, out)}
+    d_share = float(torch.isclose(out.depth, ref.depth, rtol=2e-3, atol=2e-3).float().mean())
+    ps_share = float((out.pixel_state == ref.pixel_state).float().mean())
+    log(f"sharded flagship: S = 4 slabs of {sp.Hs} rows built in {build_ms:.1f} ms, pass "
+        f"{pass_ms:.1f} ms; equal to the unsharded pass per field {json.dumps(equal)} "
+        f"(tol: every field equal); shares of equal entries: depth within 2e-3 {d_share:.6f}, "
+        f"pixel_state {ps_share:.6f}")
+    if not all(equal.values()):
+        raise AssertionError(f"sharded flagship: fields differ from the unsharded pass: "
+                             f"{[f for f, e in equal.items() if not e]}")
+    del sp, out, ref
+    torch.cuda.empty_cache()
+
+    # 3. the one-round scene in two processes sharing cuda:0
+    cams_s, planes_s, images, depths, _, _ = inputs
+    folder = os.path.join(ROOT, "_smoke_two_processes")
+    shutil.rmtree(folder, ignore_errors=True)
+    try:
+        synthetic.write_mvsnet_dataset(folder, cams_s, planes_s, depth_ranges=(2.0, 8.0),
+                                       images=images)
+        t0 = time.perf_counter()
+        outs = _two_processes(folder, dev)
+        wall = time.perf_counter() - t0
+        persisted = []
+        for i, out in enumerate(outs):
+            line = next((ln for ln in out.splitlines()
+                         if ln.startswith(f"process {i} of 2: persisted views")), None)
+            if line is None:
+                raise AssertionError(f"two processes: process {i} reported nothing:\n"
+                                     + out[-3000:])
+            persisted.append([int(v) for v in line.split("views")[1].split()])
+            fused = "Fused point cloud" in out
+            if fused != (i == 0):
+                raise AssertionError(f"two processes: process {i} fused: {fused}")
+        log(f"two processes on {dev} (gloo): {wall:.2f} s with start-up; persisted views "
+            f"{persisted[0]} and {persisted[1]}; process 0 alone fused (eth-device)")
+        if persisted != [[0, 1, 2], [3, 4]]:
+            raise AssertionError(f"two processes: persisted {persisted}")
+        got = _state_files(folder)
+        equal = got == states["one round"]
+        log(f"two processes: state files byte-equal to phase 11's one-process run: {equal} "
+            "(tol: byte-equal)")
+        if not equal:
+            _agreement("two processes against phase 11", got, states["one round"])
+            raise AssertionError("two processes: state files differ from one process's")
+        _one_round_checks("two processes", folder, depths, planes_s,
+                          os.path.join(folder, "APD", "APD.ply"))
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    return launches, ms
+
+
 def main() -> int:
     import torch
 
@@ -1977,9 +2236,11 @@ def main() -> int:
     phase_quality(dev)
     phase_bench(dev)
     torch.cuda.empty_cache()
-    walls["batched"], walls["batched two rounds"] = phase_batched(dev, inputs, walls)
+    walls["batched"], walls["batched two rounds"], states = phase_batched(dev, inputs, walls)
     torch.cuda.empty_cache()
     walls["direct"] = phase_direct(dev, inputs, walls)
+    torch.cuda.empty_cache()
+    launches_sh, walls["sharded 2x2"] = phase_sharded(dev, inputs, states)
     log("walls per view-pass (ms, host clock ending in a device synchronise): "
         + json.dumps({k: round(v, 1) for k, v in walls.items()}))
     # each kernel's launches on its slice's main path: H1, H2 and H4 (both
@@ -1993,7 +2254,14 @@ def main() -> int:
         elif "launches" not in r:
             r["launches"] = (launches_2r if r["name"] in ("gather_cols", "contract_lookup")
                              else launches)[r["name"]]
-    keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+    # and each kernel's launches in phase 13's 2 x 2 run (both wrappers of
+    # H2 and H4, both entries of H7)
+    launches_sh["ncc_cost"] += launches_sh["ncc_cost_views"]
+    launches_sh["geom_cost"] += launches_sh["geom_cost_views"]
+    launches_sh["gather_rows"] += launches_sh["gather_rows_sorted"]
+    for r in rows:
+        r["sharded"] = launches_sh[r["name"]]
+    keys = ["name", "route", "source", "replaces", "launches", "sharded", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"]
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

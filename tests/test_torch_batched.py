@@ -18,8 +18,8 @@ on the CPU.
   pixel (H-1, W-1) left out (the reference writes it through its wrapped
   -1 scatter indices, tests/test_torch_weak.py).
 - A schedule whose first pass is not FIRST_INIT raises; ``use_volumes``
-  False builds no volume in either runner; more than one shard raises;
-  ``shard_problems`` as the reference's; the pinning policy counts the
+  False builds no volume in either runner; ``shard_problems`` as the
+  reference's (meshes of several shards: tests/test_torch_spaced.py); the pinning policy counts the
   bytes the volume builder allocates.
 - The CLI with ``--batched`` and ``--batched --no-volumes`` on
   ``--device cpu`` writes the four state files per view and a cloud on
@@ -243,13 +243,6 @@ def test_no_volumes_builds_no_volume(tmp_path, monkeypatch, runner):
     st = _state(folder)
     for v in range(2):
         assert np.isfinite(st[(v, "depths.dmb")]).all() and (st[(v, "depths.dmb")] > 0).any()
-
-
-def test_more_than_one_shard_raises():
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        scene.run_scene_batched("unused", device="cpu", n_view_shards=2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tparallel.sharded_batch_pass(None, None, None, None, [], [], None, n_space_shards=2)
 
 
 @pytest.mark.parametrize("flags", [["--batched"], ["--batched", "--no-volumes"]],
