@@ -7,3 +7,10 @@ entry points run on ``cuda`` unless the caller asks for the CPU:
 """
 
 __version__ = "0.1.0"
+
+from apdmvs_tpu_torch.params import (  # noqa: F401
+    PatchMatchParams,
+    PixelState,
+    Problem,
+    RunState,
+)

@@ -8,7 +8,9 @@ runs every view of a pass as one batch (``scene.run_scene_batched``) on a
 ``APD_COORDINATOR`` / ``APD_NUM_PROCESSES`` / ``APD_PROCESS_ID``
 variables) P such commands run one batched reconstruction together over
 ``torch.distributed`` (``--dist-backend gloo`` for processes that share a
-card). They combine as in ``apdmvs_tpu/__main__.py:84-160``."""
+card). They combine as in ``apdmvs_tpu/__main__.py:84-160``, except that
+``--debug-dumps`` and ``--profile-dir``, which the JAX CLI ignores under
+``--batched``, are refused there, as ``--allow-missing-prior`` is."""
 
 from __future__ import annotations
 
@@ -41,6 +43,15 @@ def main(argv=None) -> None:
     ap.add_argument("--allow-missing-prior", action="store_true",
                     help="re-initialise a view whose prior state files are missing "
                     "instead of failing (the reference exits, APD.cpp:514-518)")
+    ap.add_argument("--debug-dumps", action="store_true",
+                    help="write every pass's DEBUG_NEIGHBOUR / DEBUG_COST_LINE probe files "
+                    "(neighbour_map.bin, neighbour.bin, weak_cost_line.dmb) into its view's "
+                    "result folder (the reference's compiled-out probes, main.h:42-43; "
+                    "sequential runner only)")
+    ap.add_argument("--profile-dir", default=None,
+                    help="record the passes under torch.profiler and write a Chrome trace to "
+                    "PROFILE_DIR/trace.json (read it with python -m apdmvs_tpu_torch.timeline; "
+                    "a large run makes a large file; sequential runner only)")
     ap.add_argument("--camera-model", choices=["eth", "dtu"], default="eth",
                     help="camera-file depth-range convention (APD.cpp:84-89)")
     ap.add_argument("--volume-cache-gb", type=float, default=6.0,
@@ -93,8 +104,11 @@ def main(argv=None) -> None:
     if args.batched:
         from apdmvs_tpu_torch.parallel import multihost
 
-        if args.allow_missing_prior:
-            ap.error("--allow-missing-prior applies to the sequential runner only")
+        for flag, given in (("--allow-missing-prior", args.allow_missing_prior),
+                            ("--debug-dumps", args.debug_dumps),
+                            ("--profile-dir", args.profile_dir is not None)):
+            if given:
+                ap.error(f"{flag} applies to the sequential runner only")
         multihost.maybe_initialize(args.coordinator, args.num_processes, args.process_id,
                                    backend=args.dist_backend,
                                    device=scene.resolve_device(args.device))
@@ -105,7 +119,7 @@ def main(argv=None) -> None:
             multihost.shutdown()
     else:
         scene.run_scene(args.dense_folder, allow_missing_prior=args.allow_missing_prior,
-                        **common)
+                        debug_dumps=args.debug_dumps, profile_dir=args.profile_dir, **common)
 
 
 if __name__ == "__main__":

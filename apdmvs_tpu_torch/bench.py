@@ -146,13 +146,14 @@ def flagship_prior(depths, normals, views: int, device):
     return prior, cap
 
 
-def flagship_pass(cams, vs, prior, cap, seed: int) -> pipeline.PassOutputs:
-    """One flagship pass over view 0 with draws seeded by ``seed``."""
+def flagship_pass(cams, vs, prior, cap, seed: int, debug: bool = False):
+    """One flagship pass over view 0 with draws seeded by ``seed``; with
+    ``debug`` also its ``pipeline.DebugProbes``."""
     H_, W_ = prior.depth.shape
     sv = torch.arange(cams.K.shape[0], device=cams.device) > 0
     return pipeline.patchmatch_pass(cams, sv, prior, rng.TorchDraws(seed, H_, W_, cams.device),
                                     FLAGSHIP_CFG, vs, weak_capacity=cap,
-                                    ransac_threshold=FLAGSHIP_RTH)
+                                    ransac_threshold=FLAGSHIP_RTH, debug=debug)
 
 
 def measure_batched(images, depths, normals, cams, n: int, repeats: int,

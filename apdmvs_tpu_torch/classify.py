@@ -90,9 +90,12 @@ def _sweep_depths(ctx, baseline, origin_depth, radius: int):
 
 
 def depth_to_weak(ctx: CostContext, planes_world, selected, view_weights,
-                  weak_peak_radius: int, cfg: PassConfig) -> torch.Tensor:
+                  weak_peak_radius: int, cfg: PassConfig, return_sweep: bool = False):
     """Reclassify every pixel from its depth cost curve (APD.cu:1990-2144).
-    planes_world: [H, W, 4] = (world normal, depth). Returns pixel_state u8."""
+    planes_world: [H, W, 4] = (world normal, depth). Returns pixel_state u8;
+    with ``return_sweep`` also the clamped [61, H, W] disparity cost sweep
+    it classified from (the DEBUG_COST_LINE probe buffer, APD.cu:2084-2091),
+    as ``(pixel_state, sweep)``."""
     H, W = ctx.height, ctx.width
     n_cam = geometry.normal_world_to_cam(ctx.cams.R[0], planes_world[..., :3])
     origin_depth = planes_world[..., 3]
@@ -142,7 +145,8 @@ def depth_to_weak(ctx: CostContext, planes_world, selected, view_weights,
         ),
     ).to(torch.uint8)
     unknown = margin | (origin_depth == 0) | (valid_cnt == 0)
-    return torch.where(unknown, torch.full_like(state, int(PixelState.UNKNOWN)), state)
+    out = torch.where(unknown, torch.full_like(state, int(PixelState.UNKNOWN)), state)
+    return (out, p_costs) if return_sweep else out
 
 
 def local_refine(ctx: CostContext, planes_world, selected, view_weights,

@@ -96,20 +96,35 @@ class Mesh(NamedTuple):
 
 
 def default_devices(device, count: int) -> List[torch.device]:
-    """``count`` devices for this process's shards: the CPU repeated; for a
-    CUDA ``device`` without an index in a run of one process with at least
-    ``count`` cards, the cards cuda:0 .. cuda:count-1; otherwise this
-    process's card (``device``, or the current card) repeated."""
+    """``count`` devices for this process's shards, a device repeated only
+    where no other card could take a shard:
+
+    - the CPU, repeated;
+    - a CUDA ``device`` with an index: that card, repeated;
+    - in a run of several processes: this process's card (``device``, or
+      the current card, which ``multihost.maybe_initialize`` sets),
+      repeated. Each process takes one card, the rule of
+      :func:`default_view_shards`;
+    - in a run of one process: cuda:0 .. cuda:count-1 when the machine has
+      at least ``count`` cards, cuda:0 repeated when it has one. With more
+      than one card and fewer than ``count`` it raises ``ValueError``
+      rather than pile the shards onto one card while the others sit
+      idle: pass ``devices=`` to lay them out by hand."""
     from apdmvs_tpu_torch.parallel import multihost
 
     dev = torch.device(device)
-    if dev.type == "cuda":
-        if (dev.index is None and multihost.world_size() == 1
-                and torch.cuda.device_count() >= count):
-            return [torch.device("cuda", i) for i in range(count)]
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    return [dev] * count
+    if dev.type != "cuda" or dev.index is not None:
+        return [dev] * count
+    if multihost.world_size() > 1:
+        return [torch.device("cuda", torch.cuda.current_device())] * count
+    cards = torch.cuda.device_count()
+    if cards >= count:
+        return [torch.device("cuda", i) for i in range(count)]
+    if cards == 1:
+        return [torch.device("cuda", 0)] * count
+    raise ValueError(f"{count} shards but {cards} cards: the default mesh puts one shard on "
+                     "each card; pass devices= (a list of count devices, which may repeat) "
+                     "to place them yourself")
 
 
 def make_mesh(n_view: int = 1, n_space: int = 1, devices=None, device="cuda") -> Mesh:

@@ -17,6 +17,12 @@ The weak stages (``weak.py``) run on passes with ``use_APD`` over a
 worklist of the prior's WEAK pixels whose capacity the caller sizes
 (``scene._bucket_capacity``).
 
+Each stage runs inside a ``torch.profiler.record_function`` span named
+``apd.<stage>`` (:data:`STAGES`), which a profiler run records
+(``scene.run_scene(profile_dir=)``, ``trace_pass``) and ``timeline`` reads
+back; a span adds no synchronisation, and without an active profiler it
+costs a few microseconds.
+
 Two paths compute the pass: the volume path (``volumes``: the plane-sweep
 volumes and the kernels H1-H6) and the direct-warp path (``volumes``
 None: the images, and the source views' depth maps on geometric passes,
@@ -61,6 +67,31 @@ class PassOutputs(NamedTuple):
     costs: torch.Tensor
 
 
+class DebugProbes(NamedTuple):
+    """The reference's compiled-out debug probes (main.h:42-43) as extra pass
+    outputs: the weak worklist and its anchors (DEBUG_NEIGHBOUR,
+    APD.cu:2421-2438) and DepthToWeak's disparity cost sweep
+    (DEBUG_COST_LINE, APD.cu:2084-2091). ``debug.dump_probes`` writes them."""
+
+    weak_xy: Optional[torch.Tensor]  # [N, 2] (x, y), -1 padding; None without the weak stages
+    anchor_coords: Optional[torch.Tensor]  # [N, 9, 2], slot 0 the pixel itself
+    sweep: torch.Tensor  # [61, H, W] clamped cost curves
+
+
+#: the stage spans of a pass, ``apd.<stage>`` (``scripts/profile_stages.py``'s
+#: stages): weak_prep is the worklist, anchors with their RANSAC and the
+#: resident columns; init or recost seeds the planes; strong_black,
+#: strong_red and weak_sweep run once an iteration
+STAGES = ("weak_prep", "init", "recost", "strong_black", "strong_red", "weak_sweep", "readout",
+          "median_filter", "depth_to_weak", "local_refine")
+
+
+def _span(stage: str):
+    """The span of one stage; ``profile_stages`` swaps this function for one
+    that synchronises the device around each stage to time it."""
+    return torch.profiler.record_function("apd." + stage)
+
+
 def patchmatch_pass(
     cams: Cameras,  # ref depth range pre-scaled by 0.6/1.2 (APD.cpp:454-455)
     src_valid: torch.Tensor,  # [V] bool
@@ -72,7 +103,8 @@ def patchmatch_pass(
     ransac_threshold: float = 0.005,
     images: Optional[torch.Tensor] = None,  # [V, H, W], the direct-warp path's input
     depth_maps: Optional[torch.Tensor] = None,  # [V, H, W], its geometric passes' input
-) -> PassOutputs:
+    debug: bool = False,
+):
     """One full pass over one reference view. ``draws`` is a draw source
     (rng.py). On the volume path ``volumes`` must carry D when
     ``cfg.geom_consistency``, and C36 and C9 when the pass runs the weak
@@ -82,7 +114,11 @@ def patchmatch_pass(
     ``volumes`` may be a spaced set (``ncc.build_volume_set_spaced``, slab 0
     on the pass's device): every grid evaluation then runs slab by slab and
     the weak columns are gathered per slab (``apdmvs_tpu/pipeline.py:112-116``),
-    with the outputs of the unsharded set."""
+    with the outputs of the unsharded set.
+
+    With ``debug`` it returns ``(PassOutputs, DebugProbes)``: the probes are
+    tensors the pass builds anyway, so ``debug`` changes what is returned,
+    never what is computed (no extra draw, no extra launch)."""
     if volumes is None:
         if images is None:
             raise ValueError("a pass without volumes needs the images (the direct-warp path)")
@@ -110,26 +146,30 @@ def patchmatch_pass(
     # takes the direct warp)
     weak_xy = anchors = wcols = None
     if cfg.use_APD and weak_capacity > 0:
-        weak_xy = weak.compact_weak_pixels(pixel_state, weak_capacity)
-        anchors, pixel_state = weak.generate_anchors(
-            ctx, prior.depth, pixel_state, weak_xy, draws, cfg, ransac_threshold)
-        if volumes is not None:
-            wcols = weak.build_weak_cols(ctx, weak_xy, anchors)
+        with _span("weak_prep"):
+            weak_xy = weak.compact_weak_pixels(pixel_state, weak_capacity)
+            anchors, pixel_state = weak.generate_anchors(
+                ctx, prior.depth, pixel_state, weak_xy, draws, cfg, ransac_threshold)
+            if volumes is not None:
+                wcols = weak.build_weak_cols(ctx, weak_xy, anchors)
 
     # RandomInitialization (APD.cu:806-835)
     if cfg.state == RunState.FIRST_INIT:
-        u_depth, g_normal = draws.init_plane()
-        planes = hypotheses.random_plane(
-            u_depth, g_normal, cams.K[0], ctx.x, ctx.y, ctx.dirs, depth_min, depth_max
-        )
-        costs, selected = ncc.initial_cost_and_views(
-            ctx, planes, cfg.strong_radius, cfg.strong_increment, cfg.top_k
-        )
+        with _span("init"):
+            u_depth, g_normal = draws.init_plane()
+            planes = hypotheses.random_plane(
+                u_depth, g_normal, cams.K[0], ctx.x, ctx.y, ctx.dirs, depth_min, depth_max
+            )
+            costs, selected = ncc.initial_cost_and_views(
+                ctx, planes, cfg.strong_radius, cfg.strong_increment, cfg.top_k
+            )
     else:
-        planes = geometry.depth_normal_to_planes(cams, prior.depth, prior.normal_world, H, W)
-        costs, selected = ncc.recost_selected_views(
-            ctx, planes, prior.selected, cfg.strong_radius, cfg.strong_increment
-        )
+        with _span("recost"):
+            planes = geometry.depth_normal_to_planes(cams, prior.depth, prior.normal_world,
+                                                     H, W)
+            costs, selected = ncc.recost_selected_views(
+                ctx, planes, prior.selected, cfg.strong_radius, cfg.strong_increment
+            )
 
     V = ctx.num_views
     st = StrongState(
@@ -137,27 +177,43 @@ def patchmatch_pass(
         view_weights=torch.zeros((V, H, W), dtype=torch.float32, device=cams.device),
     )
     for it in range(cfg.max_iterations):
-        st = propagation.propagate_strong_color(ctx, st, pixel_state, it, draws, cfg, 0)
-        st = propagation.propagate_strong_color(ctx, st, pixel_state, it, draws, cfg, 1)
+        with _span("strong_black"):
+            st = propagation.propagate_strong_color(ctx, st, pixel_state, it, draws, cfg, 0)
+        with _span("strong_red"):
+            st = propagation.propagate_strong_color(ctx, st, pixel_state, it, draws, cfg, 1)
         if weak_xy is not None:
-            st = weak.propagate_weak(ctx, st, pixel_state, weak_xy, anchors, it, draws, cfg,
-                                     wcols)
+            with _span("weak_sweep"):
+                st = weak.propagate_weak(ctx, st, pixel_state, weak_xy, anchors, it, draws,
+                                         cfg, wcols)
 
     # readout: plane -> depth + world normal (APD.cu:1587-1602)
-    depth, n_world = geometry.planes_to_depth_normal(cams, st.planes, H, W)
-    planes_world = torch.cat([n_world, depth[..., None]], dim=-1)
-    planes_world = filters.checkerboard_median_filter(planes_world, st.costs, pixel_state)
-    new_state = classify.depth_to_weak(
-        ctx, planes_world, st.selected, st.view_weights, cfg.weak_peak_radius, cfg
-    )
-    planes_world = classify.local_refine(ctx, planes_world, st.selected, st.view_weights, cfg)
-    return PassOutputs(
+    with _span("readout"):
+        depth, n_world = geometry.planes_to_depth_normal(cams, st.planes, H, W)
+        planes_world = torch.cat([n_world, depth[..., None]], dim=-1)
+    with _span("median_filter"):
+        planes_world = filters.checkerboard_median_filter(planes_world, st.costs, pixel_state)
+    with _span("depth_to_weak"):
+        new_state = classify.depth_to_weak(
+            ctx, planes_world, st.selected, st.view_weights, cfg.weak_peak_radius, cfg,
+            return_sweep=debug,
+        )
+    if debug:
+        new_state, sweep = new_state
+    with _span("local_refine"):
+        planes_world = classify.local_refine(ctx, planes_world, st.selected, st.view_weights,
+                                             cfg)
+    out = PassOutputs(
         depth=planes_world[..., 3],
         normal_world=planes_world[..., :3],
         pixel_state=new_state,
         selected=st.selected,
         costs=st.costs,
     )
+    if debug:
+        return out, DebugProbes(weak_xy=weak_xy,
+                                anchor_coords=None if anchors is None else anchors.coords,
+                                sweep=sweep)
+    return out
 
 
 def clamp_outputs(out: PassOutputs, depth_min: float, depth_max: float) -> PassOutputs:

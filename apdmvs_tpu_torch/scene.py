@@ -15,6 +15,7 @@ it raises rather than falling back to the CPU).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import shutil
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 
 from apdmvs_tpu_torch import fusion as fusion_mod
-from apdmvs_tpu_torch import geometry, ncc, pipeline, rng
+from apdmvs_tpu_torch import debug, geometry, ncc, pipeline, rng
 from apdmvs_tpu_torch.io import formats, images as imio, render
 from apdmvs_tpu_torch.params import (
     MAX_IMAGES, PassConfig, PassSpec, PixelState, Problem, RunState, build_schedule,
@@ -319,12 +320,16 @@ def process_problem(
     num_slices: int = 160,
     allow_missing_prior: bool = False,
     use_volumes: bool = True,
+    debug_dumps: bool = False,
 ) -> ProblemStats:
     """One (view, pass): the reference's ProcessProblem (main.cpp:91-138).
     Loads inputs, runs the pass on ``device``, clamps out-of-range depths
     and persists the four state files. ``use_volumes`` False runs the
     direct-warp path: no volume is built, and geometric passes read the
-    source views' depth maps."""
+    source views' depth maps. ``debug_dumps`` also writes the pass's debug
+    probes (``debug.dump_probes``: the DEBUG_NEIGHBOUR and DEBUG_COST_LINE
+    files) into the view's result folder, from the outputs before
+    clamping (``apdmvs_tpu/scene.py:440-446``)."""
     t0 = time.perf_counter()
     device = torch.device(device)
     # the cached image volumes serve all of this (problem, scale)'s passes, so
@@ -376,7 +381,11 @@ def process_problem(
         cams, torch.as_tensor(inp.src_valid, device=device), prior, draws,
         PassConfig.from_spec(spec), volumes, weak_capacity=weak_capacity,
         ransac_threshold=spec.ransac_threshold, images=images, depth_maps=depth_maps,
+        debug=debug_dumps,
     )
+    if debug_dumps:
+        out, probes = out
+        debug.dump_probes(problem.result_folder, probes, H, W)
     out = pipeline.clamp_outputs(out, dmin, dmax)
     saved = _persist(problem, spec, out, dmin, dmax, show_medium_result)
     cache.outputs[problem.ref_image_id] = saved
@@ -466,6 +475,8 @@ def run_scene(
     verbose: bool = True,
     num_slices: int = 160,
     use_volumes: bool = True,
+    debug_dumps: bool = False,
+    profile_dir: Optional[str] = None,
 ) -> SceneRun:
     """Full reconstruction (main.cpp:140-233): round scheduler -> one pass
     per (view, pass) on ``device`` -> fusion (``fusion_variant``, one of
@@ -482,7 +493,16 @@ def run_scene(
     batched runner, :func:`run_scene_batched`, reads the previous pass's).
     ``use_volumes`` False takes the direct-warp path (``--no-volumes``);
     volumes stay on by default on every device, the CPU included, where
-    the reference package turns them off."""
+    the reference package turns them off.
+
+    ``debug_dumps`` writes every pass's debug probes into its view's result
+    folder (:func:`process_problem`). ``profile_dir`` records the passes
+    (not the fusion) under ``torch.profiler``, the CPU's activity and, on a
+    card, the card's, and writes one Chrome trace to
+    ``profile_dir/trace.json``, which ``python -m apdmvs_tpu_torch.timeline``
+    reads. A large run makes a large file: 1.94 GB for a two-round
+    640x480x5 run (40 view-passes, 105 s traced, the export included) on
+    an NVIDIA H100. If the profiler cannot start, the run fails."""
     device = resolve_device(device)
     if fusion_variant not in FUSION_VARIANTS:
         raise ValueError(f"unknown fusion variant {fusion_variant!r}")
@@ -502,19 +522,28 @@ def run_scene(
                        volume_cache_bytes=volume_cache_gb * 1e9, expected_sets=len(problems))
     V_pad = max(1 + len(p.src_image_ids) for p in problems)
     passes = []
-    for spec in build_schedule(round_num):
-        for problem in problems:
-            stats = process_problem(
-                cache, problem, spec, full_size, seed, device, num_views_pad=V_pad,
-                show_medium_result=show_medium_result, num_slices=num_slices,
-                allow_missing_prior=allow_missing_prior, use_volumes=use_volumes,
-            )
-            passes.append((spec, problem, stats))
-            if verbose:
-                print(f"round {spec.round_index} pass {spec.pass_index} "
-                      f"view {problem.ref_image_id:08d} ({spec.state.name}, "
-                      f"scale 1/{spec.scale_size}): {stats.seconds * 1000:.0f} ms, "
-                      f"weak {stats.weak_pct:.1f}%, weak in {stats.weak_in}")
+    profiler = _profiler(device) if profile_dir else contextlib.nullcontext()
+    with profiler:
+        for spec in build_schedule(round_num):
+            for problem in problems:
+                stats = process_problem(
+                    cache, problem, spec, full_size, seed, device, num_views_pad=V_pad,
+                    show_medium_result=show_medium_result, num_slices=num_slices,
+                    allow_missing_prior=allow_missing_prior, use_volumes=use_volumes,
+                    debug_dumps=debug_dumps,
+                )
+                passes.append((spec, problem, stats))
+                if verbose:
+                    print(f"round {spec.round_index} pass {spec.pass_index} "
+                          f"view {problem.ref_image_id:08d} ({spec.state.name}, "
+                          f"scale 1/{spec.scale_size}): {stats.seconds * 1000:.0f} ms, "
+                          f"weak {stats.weak_pct:.1f}%, weak in {stats.weak_in}")
+    if profile_dir:
+        os.makedirs(profile_dir, exist_ok=True)
+        trace = os.path.join(str(profile_dir), "trace.json")
+        profiler.export_chrome_trace(trace)
+        if verbose:
+            print(f"Profiler trace: {trace}")
     ply = run_fusion(dense_folder, problems, variant=fusion_variant, device=device)
     if verbose:
         print(f"Fused point cloud: {ply}")
@@ -522,6 +551,15 @@ def run_scene(
         for p in problems:
             shutil.rmtree(p.result_folder, ignore_errors=True)
     return SceneRun(ply=ply, passes=passes)
+
+
+def _profiler(device: torch.device) -> torch.profiler.profile:
+    """A profiler of the CPU's activity and, for a CUDA ``device``, the
+    card's (kernels, copies), without shapes."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return torch.profiler.profile(activities=acts, record_shapes=False)
 
 
 def _resample_nearest(state: pipeline.PassState, H: int, W: int) -> pipeline.PassState:

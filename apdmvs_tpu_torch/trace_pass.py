@@ -15,9 +15,12 @@ Profiles, each under ``torch.profiler`` after a warm-up:
    (five sets at that size exceed the volume cache).
 
 For each it prints the wall time (host clock, ending in a device sync), the
-device busy time (sum of kernel and copy times on the card), the device
-idle share, and the kernels that take the most device time, with their
-launch counts. With ``--out`` it also writes each pass's Chrome trace there.
+device busy time (the union of kernel and copy intervals on the card) and
+idle share over the device's window, the kernels that take the most device
+time, with their launch counts, and then ``timeline``'s gap ledger of the
+pass as one JSON line (busy and idle per ``apd.*`` stage, the longest gaps
+with the stage and host operator around each). With ``--out`` it also
+writes each pass's Chrome trace there.
 
 Needs a CUDA card; the scenes are written under ``_trace_scene/`` in the
 repository root and removed afterwards.
@@ -26,15 +29,16 @@ repository root and removed afterwards.
 from __future__ import annotations
 
 import argparse
-import collections
 import functools
+import json
 import os
 import shutil
+import tempfile
 import time
 
 import torch
 
-from apdmvs_tpu_torch import geometry, ncc, rng, scene, weak
+from apdmvs_tpu_torch import geometry, ncc, rng, scene, timeline, weak
 from apdmvs_tpu_torch.bench import (FLAGSHIP_CFG, FLAGSHIP_RTH, flagship_pass, flagship_scene,
                                     flagship_state)
 from apdmvs_tpu_torch.datasets import synthetic
@@ -107,35 +111,34 @@ def flagship_h6_calls(cams, vs, prior, cap, seed: int):
     return seen
 
 
-def _device_kernels(prof):
-    """name -> [device microseconds, count] over the device-side events."""
-    out = collections.defaultdict(lambda: [0.0, 0])
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        out[e.name][0] += e.device_time_total
-        out[e.name][1] += 1
-    return out
+def profiled(run, path: str, top: int = 20):
+    """``run()`` on the card under ``torch.profiler`` (as
+    ``scene.run_scene(profile_dir=)`` records), its Chrome trace written to
+    ``path``; returns (run's result, wall ms ending in a device synchronise,
+    ``timeline``'s ledger of the trace)."""
+    torch.cuda.synchronize()
+    with scene._profiler(torch.device("cuda")) as prof:
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof.export_chrome_trace(path)
+    return out, wall_ms, timeline.read(path, top=top)
 
 
 def _profile_pass(run, out_dir, tag, top):
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = _device_kernels(prof)
-    busy_ms = sum(us for us, _ in kernels.values()) / 1e3
-    launches = sum(n for _, n in kernels.values())
+    with tempfile.TemporaryDirectory() as tmp:
+        _, wall_ms, led = profiled(run, os.path.join(out_dir or tmp, f"{tag}.json"), top)
+    busy_ms = led["busy_ms"]
     print(f"{tag}: wall {wall_ms:.3f} ms, device busy "
-          + (f"{busy_ms:.3f} ms (idle share {1 - busy_ms / wall_ms:.4f}), "
-             f"{launches} device events" if busy_ms > 0 else "not measured (no device events)"))
-    for name, (us, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:top]:
-        print(f"  {us / 1e3:10.3f} ms {n:6d}x  {name[:110]}")
-    if out_dir:
-        prof.export_chrome_trace(os.path.join(out_dir, f"{tag}.json"))
+          + (f"{busy_ms:.3f} ms of a {led['window_ms']:.3f} ms window (idle share "
+             f"{led['idle_share']:.4f}), {led['device_events']} device events"
+             if busy_ms else "not measured (no device events)"))
+    for k in led["kernels"]:
+        print(f"  {k['ms']:10.3f} ms {k['launches']:6d}x  {k['name']}")
+    if not out_dir:  # the trace went with the temporary directory
+        del led["trace"]
+    print(json.dumps(dict(tag=tag, wall_ms=wall_ms, **led)))
 
 
 def main(argv=None) -> None:

@@ -100,7 +100,7 @@ and no ``ok`` line is printed:
    view 0. Checks: per-view median relative depth error < 0.01 on interior
    pixels, < 0.02 on view 0's textureless core, > 1000 fused points and
    median point-to-plane distance < 0.05. H3 and the one-view H2 and H4
-   wrappers must not have launched. The outputs stay for phase 8.
+   wrappers must not have launched. The outputs stay for phases 8 and 14.
 8. fusion: the four variants of ``scene.run_fusion`` (eth, eth-device,
    tat_intermediate, tat_advanced) on phase 7's outputs, each timed twice
    with the host clock (views loaded, fused, PLY written); every cloud's
@@ -150,11 +150,32 @@ and no ``ok`` line is printed:
    on the card; and
    ``fusion_device.fuse_eth_device`` in mesh mode (space 2 on cuda:0) on
    the 2 x 2 run's outputs, equal to the one-device call, both timed.
+14. debug and profile: (a) the flagship pass of phase 6 with ``debug=True``
+   against the same pass without it, the same draws: every output field
+   equal, the launches of every kernel equal, the probes consistent (live
+   worklist = the prior's 19200 WEAK pixels, under the 24576 capacity;
+   anchors in the image or -1; the sweep [61, 480, 640], finite or
+   COST_MAX), dumped with ``debug.dump_probes`` and read back with
+   ``debug.read_neighbours``; (c) ``timeline``'s gap ledger (wall, device
+   busy, idle share, busy and idle per ``apd.*`` stage, the five longest
+   gaps with their stage and host operator) of one traced flagship pass,
+   the same pass on 4 row slabs, on the direct-warp path, and of
+   ``fuse_eth_device`` on phase 7's outputs (kept until here), then
+   ``profile_stages``' per-stage times of the flagship pass (its JSON line
+   printed); (b) ``scene.run_scene(debug_dumps=True, profile_dir=...)`` on
+   a 640x480 five-view ring scene with a textureless window, two rounds:
+   focal 800 (phase 7's field of view): > 1000 WEAK pixels enter round
+   1's REFINE_INIT pass of every view, every view's probe files read back
+   (as many neighbour rows as mapped pixels as WEAK pixels entered its last
+   round-1 pass with a worklist), the trace holds every ``apd.*`` span and
+   the kernels of H1, H2, H4, H5 and H6 by name, and phase 3's checks. The
+   phase prints its seconds; the walls of traced runs are not compared with
+   untraced ones.
 
 Then it prints the ``kernels`` JSON line (launches: H1, H2 and H4 from
 phase 3, H5-H6 from phase 7, H3, H7 and H8 from phase 5, and each
 kernel's ``sharded`` launches from phase 13's 2 x 2 run; times in device
-time where the script takes it; phases 11 and 12 launch no other kernel),
+time where the script takes it; phases 11, 12 and 14 launch no other kernel),
 the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the rest
 of the repository beside it, it fails before printing any result.
@@ -1886,43 +1907,6 @@ def phase_batched(dev, inputs, walls):
     return ms, ms2, states
 
 
-#: the direct-warp pass's stages, by the module attribute the pass calls
-DIRECT_STAGES = (("ncc", "initial_cost_and_views"), ("ncc", "recost_selected_views"),
-                 ("weak", "generate_anchors"), ("propagation", "propagate_strong_color"),
-                 ("weak", "propagate_weak"), ("classify", "depth_to_weak"),
-                 ("classify", "local_refine"))
-
-
-def _stage_timed(fn):
-    """``fn`` timed per stage (a device synchronise before and after each
-    call of a stage of DIRECT_STAGES); returns (fn's result, ms per stage)."""
-    import importlib
-
-    import torch
-
-    ms = {}
-    saved = []
-    for mod_name, attr in DIRECT_STAGES:
-        mod = importlib.import_module(f"apdmvs_tpu_torch.{mod_name}")
-        inner = getattr(mod, attr)
-
-        def timed(*args, _inner=inner, _name=attr, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = _inner(*args, **kwargs)
-            torch.cuda.synchronize()
-            ms[_name] = ms.get(_name, 0.0) + 1e3 * (time.perf_counter() - t0)
-            return out
-
-        saved.append((mod, attr, inner))
-        setattr(mod, attr, timed)
-    try:
-        return fn(), ms
-    finally:
-        for mod, attr, inner in saved:
-            setattr(mod, attr, inner)
-
-
 def phase_direct(dev, inputs, walls):
     """Phase 12: the one-round 640x480x5 scene through
     ``scene.run_scene_batched(use_volumes=False)``, then the flagship APD
@@ -1935,6 +1919,7 @@ def phase_direct(dev, inputs, walls):
 
     from apdmvs_tpu_torch import bench, pipeline, rng
     from apdmvs_tpu_torch.datasets import synthetic
+    from apdmvs_tpu_torch.profile_stages import _stage_timed
 
     cams_s, planes_s, images, depths, normals, cams = inputs
     folder = os.path.join(ROOT, "_smoke_direct")
@@ -2200,6 +2185,197 @@ def phase_sharded(dev, inputs, states):
     return launches, ms
 
 
+#: the kernels' function names, as a trace names them (H1, H2, H4, H5, H6)
+TRACE_KERNELS = ("build_volume_kernel", "ncc_cost_kernel", "geom_cost_kernel",
+                 "gather_cols_kernel", "contract_lookup_kernel")
+
+
+def _launch_calls(path):
+    """The host calls that launched each kernel of TRACE_KERNELS in the
+    trace at ``path`` (matched through ``args.correlation``, as
+    ``timeline`` matches them)."""
+    from apdmvs_tpu_torch import timeline
+
+    events = timeline.load_events(path)
+    calls = {e["args"]["correlation"]: e["name"] for e in events
+             if timeline._cat(e) in timeline.LAUNCH_CATS and "correlation" in e.get("args", {})}
+    out = {}
+    for e in events:
+        if timeline._cat(e) == "kernel":
+            for k in TRACE_KERNELS:
+                if k in e["name"]:
+                    out.setdefault(k, set()).add(calls.get(e["args"].get("correlation"), "none"))
+    return {k: sorted(v) for k, v in out.items()}
+
+
+def _log_ledger(tag, wall, led, t_phase):
+    """One line of a gap ledger: wall, busy, idle share, busy and idle ms per
+    stage, the five longest gaps with their stage and host operator (none
+    between operators: the host in Python); and the seconds since
+    ``t_phase``."""
+    if not led["device_events"]:
+        raise AssertionError(f"idle {tag}: the trace holds no device event")
+    stages = ", ".join(f"{k} {v['busy_ms']:.2f}/{v['idle_ms']:.2f}"
+                       for k, v in led["stages"].items())
+    gaps = "; ".join(f"{g['ms']:.3f} ms in {g['stage']} (host in {g['host_op'] or 'Python'}, "
+                     f"then {g['next'][:48]})" for g in led["gaps"]["top"][:5])
+    log(f"idle {tag}: wall {wall:.1f} ms, device window {led['window_ms']:.1f} ms, busy "
+        f"{led['busy_ms']:.1f} ms, idle share {led['idle_share']:.4f}; {led['device_events']} "
+        f"device events ({led['unmatched']} not matched to a launch); busy/idle ms per stage "
+        f"(- outside every stage): {stages}; gaps >= {led['gaps']['threshold_ms']} ms: "
+        f"{led['gaps']['count']}, {led['gaps']['sum_ms']:.1f} ms; longest: {gaps} "
+        f"[{time.perf_counter() - t_phase:.1f} s into the phase]")
+
+
+def phase_debug_profile(dev, inputs, folder_2r):
+    """Phase 14 (see the module docstring); ``folder_2r`` holds phase 7's
+    outputs. Returns the phase's seconds."""
+    import numpy as np
+    import torch
+
+    from apdmvs_tpu_torch import (bench, debug, fusion_device, ncc, pipeline, profile_stages,
+                                  rng, scene)
+    from apdmvs_tpu_torch.trace_pass import profiled
+    from apdmvs_tpu_torch.datasets import synthetic
+    from apdmvs_tpu_torch.io import formats
+    from apdmvs_tpu_torch.params import PixelState
+
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(ROOT, "_smoke_profile")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    cams_s, planes_s, images, depths, normals, cams = inputs
+    try:
+        # (a) the flagship pass with and without debug, the same draws
+        vs, prior, cap, _ = bench.flagship_state(images, depths, normals, cams, K)
+        bench.flagship_pass(cams, vs, prior, cap, 0)
+        ref, launches_ref = _run_counted(bench.flagship_pass, cams, vs, prior, cap, 1)[::2]
+        (out, probes), launches = _run_counted(bench.flagship_pass, cams, vs, prior, cap, 1,
+                                               debug=True)[::2]
+        equal = {f: bool(torch.equal(a, b)) for f, a, b in zip(ref._fields, ref, out)}
+        weak_in = int((prior.pixel_state == PixelState.WEAK).sum())
+        live = probes.weak_xy[:, 0] >= 0
+        a = probes.anchor_coords[live]
+        inside = ((a[..., 0] >= 0) & (a[..., 0] < W) & (a[..., 1] >= 0) & (a[..., 1] < H)) | (
+            (a[..., 0] == -1) & (a[..., 1] == -1))
+        sweep_ok = bool((torch.isfinite(probes.sweep) | (probes.sweep == ncc.COST_MAX)).all())
+        debug.dump_probes(out_dir, probes, H, W)
+        nb = debug.read_neighbours(os.path.join(out_dir, "neighbour.bin"))
+        nb_map = formats.read_bin_mat(os.path.join(out_dir, "neighbour_map.bin"))
+        log(f"debug flagship: every field equal to the pass without debug "
+            f"{json.dumps(equal)} (tol: equal); launches with debug {json.dumps(launches)}, "
+            f"without {json.dumps(launches_ref)} (tol: equal); worklist {int(live.sum())} live "
+            f"of {cap} (prior WEAK {weak_in}), anchors in the image or -1: "
+            f"{bool(inside.all())}, sweep {tuple(probes.sweep.shape)} finite or COST_MAX: "
+            f"{sweep_ok}; dumped and read back: {nb.shape[0]} rows, {int((nb_map >= 0).sum())} "
+            "mapped pixels")
+        if not (all(equal.values()) and launches == launches_ref
+                and all(launches[k] > 0 for k in ("ncc_cost_views", "geom_cost_views",
+                                                  "gather_cols", "contract_lookup"))
+                and int(live.sum()) == weak_in < cap and bool(inside.all()) and sweep_ok
+                and tuple(probes.sweep.shape) == (61, H, W)
+                and nb.shape == (weak_in, 9, 2) and nb.shape[0] == int((nb_map >= 0).sum())):
+            raise AssertionError("debug flagship: debug changed the pass or its probes are wrong")
+        del ref, out, probes
+
+        # (c) idle shares: the bench's flagship pass, then on 4 row slabs
+        _, wall, led = profiled(lambda: bench.flagship_pass(cams, vs, prior, cap, 2),
+                                os.path.join(out_dir, "flagship.json"), 5)
+        _log_ledger("flagship pass", wall, led, t_phase)
+        log("flagship pass: the host calls that launched each kernel "
+            + json.dumps(_launch_calls(os.path.join(out_dir, "flagship.json"))))
+        del vs
+        torch.cuda.empty_cache()
+        sp = ncc.build_volume_set_spaced(torch.as_tensor(images, device=dev), cams, bench.DMIN,
+                                         bench.DMAX, [dev] * 4, num_slices=K,
+                                         depth_maps=torch.as_tensor(depths, device=dev))
+        bench.flagship_pass(cams, sp, prior, cap, 1)
+        _, wall, led = profiled(lambda: bench.flagship_pass(cams, sp, prior, cap, 2),
+                                os.path.join(out_dir, "flagship_4_slabs.json"), 5)
+        _log_ledger("flagship pass on 4 row slabs", wall, led, t_phase)
+        del sp
+        torch.cuda.empty_cache()
+        sv = torch.arange(V, device=dev) > 0
+        imgs_t, dms_t = (torch.as_tensor(x, device=dev) for x in (images, depths))
+        _, wall, led = profiled(
+            lambda: pipeline.patchmatch_pass(
+                cams, sv, prior, rng.TorchDraws(2, H, W, dev), bench.FLAGSHIP_CFG,
+                weak_capacity=cap, ransac_threshold=bench.FLAGSHIP_RTH, images=imgs_t,
+                depth_maps=dms_t),
+            os.path.join(out_dir, "flagship_direct.json"), 5)
+        _log_ledger("flagship pass, direct-warp path", wall, led, t_phase)
+        problems = scene.generate_sample_list(folder_2r)
+        views, src_ids = scene._load_fusion_views(folder_2r, problems)
+        fusion_device.fuse_eth_device(views, src_ids, device=dev)
+        _, wall, led = profiled(lambda: fusion_device.fuse_eth_device(views, src_ids,
+                                                                      device=dev),
+                                os.path.join(out_dir, "eth_device.json"), 5)
+        _log_ledger(f"eth-device fusion ({W2}x{H2}, two rounds' outputs)", wall, led, t_phase)
+        del views
+        torch.cuda.empty_cache()
+        row = profile_stages.measure(W, H, V, dev)
+        log(f"flagship stages (ms, least of {row['repeats']}, a device synchronise around "
+            f"each): {json.dumps(row['stages_ms'])}; pass without them {row['pass_ms']:.1f} ms "
+            f"[{time.perf_counter() - t_phase:.1f} s into the phase]")
+        print(json.dumps(row), flush=True)
+        torch.cuda.empty_cache()
+
+        # (b) a two-round 640x480 run with the dumps and a trace
+        folder = os.path.join(ROOT, "_smoke_debug_2r")
+        shutil.rmtree(folder, ignore_errors=True)
+        # focal 800: phase 7's field of view, so the textureless window
+        # covers a quarter of phase 7's pixels (the default focal leaves it
+        # under a thousand)
+        cams_f, planes_f = synthetic.make_ring_scene(num_views=V, width=W, height=H,
+                                                     focal=800.0, include_flat_region=True)
+        _, depths_f, _ = synthetic.render_scene(cams_f, planes_f)
+        synthetic.write_mvsnet_dataset(folder, cams_f, planes_f, depth_ranges=(2.0, 8.0))
+        prof_dir = os.path.join(out_dir, "two_rounds")
+        try:
+            run, wall, launches = _run_counted(scene.run_scene, folder, device="cuda",
+                                               verbose=False, min_rounds=2, debug_dumps=True,
+                                               profile_dir=prof_dir)
+            last = {}
+            for spec, problem, st in run.passes:
+                if spec.round_index == 1 and st.weak_in:
+                    last[problem.ref_image_id] = st.weak_in
+            into = {problem.ref_image_id: st.weak_in for spec, problem, st in run.passes
+                    if spec.round_index == 1 and spec.state.name == "REFINE_INIT"}
+            read = []
+            for v in range(V):
+                rf = os.path.join(folder, "APD", formats.to_format_index(v))
+                nb = debug.read_neighbours(os.path.join(rf, "neighbour.bin"))
+                nb_map = formats.read_bin_mat(os.path.join(rf, "neighbour_map.bin"))
+                line = formats.read_bin_mat(os.path.join(rf, "weak_cost_line.dmb"))
+                read.append(nb.shape[0] == int((nb_map >= 0).sum()) == last.get(v)
+                            and line.shape == (61, W) and nb_map.shape == (H, W))
+            trace = os.path.join(prof_dir, "trace.json")
+            t0 = time.perf_counter()
+            with open(trace) as f:  # a scan, not a parse: the trace holds ~40 passes
+                text = f.read()
+            seen = {k: k in text for k in TRACE_KERNELS}
+            spans = {s: f'"apd.{s}"' in text for s in pipeline.STAGES}
+            del text
+            log(f"debug two rounds ({W}x{H}, {len(run.passes)} view-passes, traced): "
+                f"{wall:.2f} s, trace {os.path.getsize(trace) / 1e6:.1f} MB scanned in "
+                f"{time.perf_counter() - t0:.1f} s; WEAK pixels entering round 1's REFINE_INIT "
+                f"pass per view {json.dumps(into)} (tol > 1000 each); probe files read back "
+                f"per view {read}; spans "
+                f"{json.dumps(spans)}; kernels by name {json.dumps(seen)}; launches "
+                f"{json.dumps(launches)} [{time.perf_counter() - t_phase:.1f} s into the phase]")
+            if not (min(into.values()) > 1000 and all(read) and all(seen.values())
+                    and all(spans.values())):
+                raise AssertionError("debug two rounds: probes, spans or kernels missing")
+            _one_round_checks("debug two rounds", folder, depths_f, planes_f, run.ply)
+        finally:
+            shutil.rmtree(folder, ignore_errors=True)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    log(f"debug and profile: phase took {seconds:.1f} s")
+    return seconds
+
+
 def main() -> int:
     import torch
 
@@ -2226,23 +2402,27 @@ def main() -> int:
     phase_flagship(dev, inputs, flag)
     del flag, worklist
     torch.cuda.empty_cache()
+    # phase 7's outputs stay for phase 8, and for phase 14's trace of the device fusion
     folder_2r = os.path.join(ROOT, "_smoke_scene_2r")
     try:
         launches_2r, planes_2r, walls["two rounds"] = phase_two_rounds(dev, folder_2r)
         phase_fusion(dev, folder_2r, planes_2r)
+        torch.cuda.empty_cache()
+        phase_quality(dev)
+        phase_bench(dev)
+        torch.cuda.empty_cache()
+        walls["batched"], walls["batched two rounds"], states = phase_batched(dev, inputs,
+                                                                              walls)
+        torch.cuda.empty_cache()
+        walls["direct"] = phase_direct(dev, inputs, walls)
+        torch.cuda.empty_cache()
+        launches_sh, walls["sharded 2x2"] = phase_sharded(dev, inputs, states)
+        log("walls per view-pass (ms, host clock ending in a device synchronise): "
+            + json.dumps({k: round(v, 1) for k, v in walls.items()}))
+        torch.cuda.empty_cache()
+        phase_debug_profile(dev, inputs, folder_2r)
     finally:
         shutil.rmtree(folder_2r, ignore_errors=True)
-    torch.cuda.empty_cache()
-    phase_quality(dev)
-    phase_bench(dev)
-    torch.cuda.empty_cache()
-    walls["batched"], walls["batched two rounds"], states = phase_batched(dev, inputs, walls)
-    torch.cuda.empty_cache()
-    walls["direct"] = phase_direct(dev, inputs, walls)
-    torch.cuda.empty_cache()
-    launches_sh, walls["sharded 2x2"] = phase_sharded(dev, inputs, states)
-    log("walls per view-pass (ms, host clock ending in a device synchronise): "
-        + json.dumps({k: round(v, 1) for k, v in walls.items()}))
     # each kernel's launches on its slice's main path: H1, H2 and H4 (both
     # wrappers of each) on the one-round 640x480 scene, H5-H6 on the two-round
     # 1280x960 scene, H3, H7, H8 in the ops phase

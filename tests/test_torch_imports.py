@@ -41,7 +41,8 @@ def test_port_has_modules():
                 "ops/_build", "io/formats", "io/images",
                 "io/render", "datasets/synthetic", "native/__init__", "eval",
                 "fusion_device", "bench", "quality_table", "datasets/colmap",
-                "parallel/__init__", "parallel/sharded"):
+                "parallel/__init__", "parallel/sharded", "debug", "profile_stages", "timeline",
+                "eth3d_eval"):
         assert f"apdmvs_tpu_torch/{mod}.py" in rel, mod
 
 

@@ -149,6 +149,35 @@ def test_refine_iter_geom_pass_matches_reference(first_init):
     assert np.median(np.abs(tout.depth.numpy() - gt)[m] / gt[m]) < 0.01
 
 
+def test_refine_init_pass_without_apd_matches_reference(first_init):
+    """A REFINE_INIT pass with the weak machinery off: the runners take this
+    branch when a pass of round 1 or later finds no WEAK pixel
+    (``apdmvs_tpu_torch/scene.py``, ``weak_capacity == 0``: use_APD off,
+    ``apdmvs_tpu/scene.py:388-393``). Prior: the reference's FIRST_INIT
+    output; the tolerances of the geometric pass above."""
+    sc, jvs, tvs, jout0, _ = first_init
+    V, H, W = sc["V"], sc["H"], sc["W"]
+    src_valid = np.array([False] + [True] * (V - 1))
+    prior = jpipe.PassState(depth=jout0.depth, normal_world=jout0.normal_world,
+                            pixel_state=jout0.pixel_state, selected=jout0.selected)
+    cfg = PassConfig(state=RunState.REFINE_INIT, geom_consistency=False, use_APD=False,
+                     max_iterations=3, weak_peak_radius=6)
+    key = jax.random.PRNGKey(7)
+    jout = jpipe.patchmatch_pass(jnp.asarray(sc["images"]), sc["jcams"], jnp.asarray(src_valid),
+                                 prior, key, cfg, jnp.asarray(0.00875), volumes=jvs)
+    tout = tpipe.patchmatch_pass(convert.to_cameras(sc["jcams"]), t(src_valid),
+                                 convert.to_pass_state(prior), JaxDraws(key, H, W), cfg, tvs,
+                                 ransac_threshold=0.00875)
+    depth_ok, state_ok, sel_ok = _compare(jout, tout)
+    print(f"REFINE_INIT without APD: depths within 1e-3 {depth_ok:.6f}, pixel_state equal "
+          f"{state_ok:.6f}, selected equal {sel_ok:.6f}")
+    assert depth_ok >= 0.99, depth_ok
+    assert state_ok >= 0.99, state_ok
+    assert sel_ok >= 0.99, sel_ok
+    # the prior carried WEAK pixels, which this pass leaves to the strong sweeps
+    assert (np.asarray(prior.pixel_state) == PixelState.WEAK).any()
+
+
 def test_refine_iter_pass_reads_e_alone(first_init, monkeypatch):
     """A REFINE_ITER pass builds no rebased volume (the reference rebases
     on the recost and every iteration) and evaluates every NCC cost over

@@ -19,6 +19,11 @@ where every kernel runs its plain version.
 - ``sharded_batch_pass`` on meshes (1, 4), (2, 1) and (2, 2) of CPU
   shards equals (1, 1) bit for bit: two problems with rotated view sets
   and a geometric APD pass (tests/test_spaced_volumes.py:198-260).
+- ``default_devices`` with 1, 2 and 4 cards (``torch.cuda.device_count``
+  monkeypatched): one shard a card, a card repeated only on a machine with
+  one card, a ``ValueError`` with two cards and four shards; a named card,
+  the CPU and an explicit ``devices=`` list taken as given; one card a
+  process in a run of several.
 """
 
 import functools
@@ -268,3 +273,34 @@ def test_mesh_layout_and_problem_blocks():
     with pytest.raises(ValueError, match="need 6 devices"):
         parallel.make_mesh(2, 3, devices=["cpu"] * 4)
     assert parallel.default_view_shards("cpu", 1, 5) == 1
+
+
+@pytest.mark.parametrize("cards", [1, 2, 4])
+def test_default_devices_never_pile_shards_onto_one_card(monkeypatch, cards):
+    """The default layout puts one shard on each card; it repeats a card
+    only on a machine with one card, and with more cards than one but fewer
+    than the shards it refuses (``devices=`` lays them out by hand). A
+    named card, the CPU and an explicit device list are taken as given, and
+    a process of several takes one card."""
+    from apdmvs_tpu_torch.parallel import multihost, sharded
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    cuda = [torch.device("cuda", i) for i in range(4)]
+    assert sharded.default_devices("cuda", 1) == cuda[:1]
+    assert sharded.default_devices("cuda", 2) == (cuda[:1] * 2 if cards == 1 else cuda[:2])
+    if cards == 2:
+        with pytest.raises(ValueError, match="4 shards but 2 cards.*devices="):
+            sharded.default_devices("cuda", 4)
+        with pytest.raises(ValueError, match="pass devices="):
+            parallel.make_mesh(2, 2, device="cuda")
+    else:
+        assert sharded.default_devices("cuda", 4) == (cuda[:1] * 4 if cards == 1 else cuda)
+        mesh = parallel.make_mesh(2, 2, device="cuda")
+        assert [d for row in mesh.devices for d in row] == sharded.default_devices("cuda", 4)
+    assert sharded.default_devices("cuda:1", 3) == [cuda[1]] * 3
+    assert sharded.default_devices("cpu", 3) == [torch.device("cpu")] * 3
+    explicit = parallel.make_mesh(2, 2, devices=["cuda:0"] * 4, device="cuda")
+    assert [d for row in explicit.devices for d in row] == [cuda[0]] * 4
+    monkeypatch.setattr(multihost, "world_size", lambda: 2)
+    assert sharded.default_devices("cuda", 3) == [cuda[1]] * 3

@@ -25,6 +25,10 @@ Measured (CPU): depths 99.99 % and 98.88 % overall; the same geometric
 pass without APD agrees on 98.86 %, so the APD machinery adds no
 divergence of its own. The test prints every fraction, with and without
 pixel (H-1, W-1), which the reference overwrites (test_torch_weak.py).
+
+Both sides run with ``debug=True``, which only adds outputs on either side
+(``apdmvs_tpu/pipeline.py:86-87``): the port's probes are held to the
+reference's, the worklist exactly and the anchor rows on >= 99 %.
 """
 
 import os
@@ -77,7 +81,7 @@ def _inputs():
     return sc, prior, jvs, cap
 
 
-def _reference_pass(sc, prior, jvs, cap, case):
+def _reference_pass(sc, prior, jvs, cap, case, debug=False):
     cfg, seed = CASES[case]
     sv = np.arange(sc["V"]) > 0
     depth_maps = None
@@ -86,14 +90,17 @@ def _reference_pass(sc, prior, jvs, cap, case):
         jvs = jncc.add_depth_volumes(jvs, depth_maps, sc["jcams"], DMIN, DMAX)
     out = jpipe.patchmatch_pass(jnp.asarray(sc["images"]), sc["jcams"], jnp.asarray(sv), prior,
                                 jax.random.PRNGKey(seed), cfg, jnp.asarray(RTH, jnp.float32),
-                                depth_maps=depth_maps, weak_capacity=cap, volumes=jvs)
+                                depth_maps=depth_maps, weak_capacity=cap, volumes=jvs,
+                                debug=debug)
     return out, jvs
 
 
 @pytest.fixture(scope="module")
 def passes(tmp_path_factory):
-    """Reference and port outputs of both cases, and the outputs of the
-    reference's AVX build, computed meanwhile in a fresh process."""
+    """Reference and port outputs of both cases, each side's debug probes
+    (``debug=True`` adds outputs and changes none on either side,
+    ``apdmvs_tpu/pipeline.py:86-87``), and the outputs of the reference's
+    AVX build, computed meanwhile in a fresh process."""
     out_dir = tmp_path_factory.mktemp("weak_pass_avx")
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=ROOT,
                XLA_FLAGS=os.environ.get("XLA_FLAGS", "") + " --xla_cpu_max_isa=AVX")
@@ -103,19 +110,21 @@ def passes(tmp_path_factory):
         sc, prior, jvs, cap = _inputs()
         results = {}
         for case, (cfg, seed) in CASES.items():
-            jout, jvs_case = _reference_pass(sc, prior, jvs, cap, case)
-            tout = tpipe.patchmatch_pass(
+            (jout, jprobes), jvs_case = _reference_pass(sc, prior, jvs, cap, case, debug=True)
+            tout, tprobes = tpipe.patchmatch_pass(
                 convert.to_cameras(sc["jcams"]), t(np.arange(sc["V"]) > 0),
                 convert.to_pass_state(prior), JaxDraws(jax.random.PRNGKey(seed), sc["H"], sc["W"]),
-                cfg, convert.to_volume_set(jvs_case), weak_capacity=cap, ransac_threshold=RTH)
-            results[case] = (jout, tout)
+                cfg, convert.to_volume_set(jvs_case), weak_capacity=cap, ransac_threshold=RTH,
+                debug=True)
+            results[case] = (jout, tout, (jprobes, tprobes))
         proc.wait(timeout=900)
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
     assert proc.returncode == 0
-    return sc, cap, {c: r + (dict(np.load(out_dir / f"{c}.npz")),) for c, r in results.items()}
+    return sc, cap, {c: r[:2] + (dict(np.load(out_dir / f"{c}.npz")), r[2])
+                     for c, r in results.items()}
 
 
 def _within(a, ref, tol=1e-3):
@@ -125,7 +134,7 @@ def _within(a, ref, tol=1e-3):
 @pytest.mark.parametrize("case", list(CASES))
 def test_apd_pass_matches_reference(passes, case):
     sc, cap, res = passes
-    jout, tout, avx = res[case]
+    jout, tout, avx, _ = res[case]
     H, W = sc["H"], sc["W"]
     jd, td = np.asarray(jout.depth), tout.depth.numpy()
     ok = _within(td, jd)
@@ -153,6 +162,27 @@ def test_apd_pass_matches_reference(passes, case):
     gt = sc["depths"][0]
     m = sc["flat"] & (gt > 0)
     assert np.median(np.abs(td - gt)[m] / gt[m]) < 0.02
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_debug_probes_match_reference(passes, case):
+    """The worklist equal exactly; anchor rows equal on >= 99 % (the level
+    of test_torch_weak.py::test_generate_anchors_matches). The sweeps'
+    agreement is printed, not held: each sweep runs around its own pass's
+    depths, which differ where the passes do (test_torch_debug.py holds
+    depth_to_weak's sweep to the JAX package's on the same inputs)."""
+    sc, cap, res = passes
+    _, _, _, (jprobes, tprobes) = res[case]
+    np.testing.assert_array_equal(tprobes.weak_xy.numpy(), np.asarray(jprobes.weak_xy))
+    live = tprobes.weak_xy[:, 0].numpy() >= 0
+    assert live.sum() == int(sc["flat"].sum())
+    rows = np.all(np.asarray(jprobes.anchor_coords) == tprobes.anchor_coords.numpy(),
+                  axis=(1, 2))
+    diff = np.abs(tprobes.sweep.numpy() - np.asarray(jprobes.sweep))
+    print(f"{case}: anchor rows equal {rows[live].mean():.6f} of the worklist's "
+          f"{live.sum()}; sweep entries within 1e-4 {(diff <= 1e-4).mean():.6f}")
+    assert rows[live].mean() >= 0.99
+    assert tprobes.sweep.shape == (61, sc["H"], sc["W"])
 
 
 if __name__ == "__main__":
