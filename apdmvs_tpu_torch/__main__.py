@@ -54,8 +54,10 @@ def main(argv=None) -> None:
                     "a large run makes a large file; sequential runner only)")
     ap.add_argument("--camera-model", choices=["eth", "dtu"], default="eth",
                     help="camera-file depth-range convention (APD.cpp:84-89)")
-    ap.add_argument("--volume-cache-gb", type=float, default=6.0,
-                    help="device byte budget for the per-(problem, scale) image volumes")
+    ap.add_argument("--volume-cache-gb", type=float, default=None,
+                    help="device byte budget (GB) for the per-(problem, scale) image volumes "
+                    "(default: derived from the device's memory at each scale, "
+                    "scene.volume_cache_budget)")
     ap.add_argument("--num-slices", type=int, default=160,
                     help="inverse-depth slices of the plane-sweep volumes")
     ap.add_argument("--no-volumes", action="store_true",

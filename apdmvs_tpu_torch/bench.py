@@ -4,7 +4,8 @@ metric).
 
     python -m apdmvs_tpu_torch.bench [--repeats 5] [--device cuda]
 
-Measures the flagship program — one complete REFINE_ITER pass (strong
+Measures the flagship program — one complete REFINE_ITER pass, compiled
+(``pipeline.patchmatch_pass``: on a card a CUDA graph replayed; strong
 checkerboard propagation + APD weak machinery + geometric consistency +
 classification + refinement) on the synthetic 5-view ring scene at
 640x480 — and reports depth-maps/s *including amortized volume builds*:
@@ -26,10 +27,10 @@ This module is the one definition of the flagship pass:
 ``--batched-problems N`` (default 4, as ``bench.py:72-78``; 0 disables)
 also times the batched runner's volume path
 (``parallel.sharded._volume_batched_pass``) on N copies of the flagship
-problem, its image-volume sets pinned within 6 GB as ``run_scene_batched``
-pins them (at 640x480x5, 1.71 GB a set: 2 of 4) and the rest built in the
-loop every pass, each problem's depth volumes from the ground truth as the
-flagship's:
+problem, its image-volume sets pinned as ``run_scene_batched`` pins them by
+default (within ``scene.volume_cache_budget``; at 640x480x5, 1.71 GB a set,
+an 80 GB card pins all 4) and any rest built in the loop every pass, each
+problem's depth volumes from the ground truth as the flagship's:
 
   batched_maps_per_sec = N / (median batch pass + pinned-set build / 4)
 
@@ -52,6 +53,7 @@ import json
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -146,22 +148,28 @@ def flagship_prior(depths, normals, views: int, device):
     return prior, cap
 
 
-def flagship_pass(cams, vs, prior, cap, seed: int, debug: bool = False):
+def flagship_pass(cams, vs, prior, cap, seed: int, debug: bool = False, eager: bool = False):
     """One flagship pass over view 0 with draws seeded by ``seed``; with
-    ``debug`` also its ``pipeline.DebugProbes``."""
+    ``debug`` also its ``pipeline.DebugProbes``. The compiled pass
+    (``pipeline.patchmatch_pass``); ``eager``, or a spaced set ``vs``, runs
+    its body (``pipeline.patchmatch_pass_impl``), as profiling and stage
+    timing need."""
     H_, W_ = prior.depth.shape
     sv = torch.arange(cams.K.shape[0], device=cams.device) > 0
-    return pipeline.patchmatch_pass(cams, sv, prior, rng.TorchDraws(seed, H_, W_, cams.device),
-                                    FLAGSHIP_CFG, vs, weak_capacity=cap,
-                                    ransac_threshold=FLAGSHIP_RTH, debug=debug)
+    run = (pipeline.patchmatch_pass_impl if eager or vs.spaced
+           else pipeline.patchmatch_pass)
+    return run(cams, sv, prior, rng.TorchDraws(seed, H_, W_, cams.device), FLAGSHIP_CFG, vs,
+               weak_capacity=cap, ransac_threshold=FLAGSHIP_RTH, debug=debug)
 
 
 def measure_batched(images, depths, normals, cams, n: int, repeats: int,
-                    budget_gb: float = 6.0, num_slices: int = 160) -> dict:
+                    budget_gb: Optional[float] = None, num_slices: int = 160) -> dict:
     """The batched row: N copies of the flagship problem through the
     volume path's batch body, the pinned sets built (and timed) once after
     a warm-up build, the batch pass timed ``repeats`` times after one
-    warm-up, each interval ending in a device synchronise."""
+    warm-up, each interval ending in a device synchronise. The sets are
+    pinned within ``budget_gb`` (None: ``scene.volume_cache_budget``, the
+    default of ``run_scene_batched``)."""
     dev = cams.device
     V_, H_, W_ = images.shape
     prior, cap = flagship_prior(depths, normals, V_, dev)
@@ -171,7 +179,9 @@ def measure_batched(images, depths, normals, cams, n: int, repeats: int,
     sv_b = (torch.arange(V_, device=dev) > 0)[None].expand(n, V_)
     src_index = np.tile(np.arange(V_), (n, 1))  # every copy reads the ground truth
     set_bytes = ncc.image_volume_set_nbytes(V_, H_, W_, num_slices, weak_cost_volumes=True)
-    M = parallel.pinned_count(set_bytes, n, budget_gb * 1e9)
+    budget = (scene.volume_cache_budget(dev, V_, H_, W_, num_slices) if budget_gb is None
+              else budget_gb * 1e9)
+    M = parallel.pinned_count(set_bytes, n, budget)
 
     def prebuild():
         if M == 0:

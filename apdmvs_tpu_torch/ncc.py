@@ -175,13 +175,20 @@ def build_image_volume_set(images: torch.Tensor, cams: Cameras, depth_min, depth
                          None, weak_cost_volumes)[0][0]
 
 
+def padded_grid(height: int, width: int) -> Tuple[int, int]:
+    """(Hp, Wp): the kernel grid of one set, H x W padded to (NCC_TILE_H,
+    TILE_W) multiples (the depth volumes' shape; E and the cost volumes add
+    the window's halo)."""
+    return _ceil_to(height, ncc_volume.NCC_TILE_H), _ceil_to(width, ncc_volume.TILE_W)
+
+
 def image_volume_set_nbytes(num_views: int, height: int, width: int, num_slices: int = 160,
                             weak_cost_volumes: bool = True) -> int:
     """Device bytes of the set :func:`build_image_volume_set` builds for V
     views of H x W: E (and C36, C9) [V-1, K, PH, PW] bf16, consts and the
     padded reference image."""
-    PH = _ceil_to(height, ncc_volume.NCC_TILE_H) + 2 * ncc_volume.PAD_Y
-    PW = _ceil_to(width, ncc_volume.TILE_W) + 2 * ncc_volume.PAD_X
+    Hp, Wp = padded_grid(height, width)
+    PH, PW = Hp + 2 * ncc_volume.PAD_Y, Wp + 2 * ncc_volume.PAD_X
     volumes = 3 if weak_cost_volumes else 1
     return (volumes * (num_views - 1) * num_slices * PH * PW * 2
             + (num_views - 1) * 21 * 4 + PH * PW * 4)
@@ -362,8 +369,8 @@ def _pad_planes_cf(plane: torch.Tensor, Hp: int, Wp: int) -> torch.Tensor:
     fronto-parallel plane (0, 0, -1, 1) whose results are sliced off."""
     C, H, W, _ = plane.shape
     out = torch.zeros((C, 4, Hp, Wp), dtype=torch.float32, device=plane.device)
-    out[:, 2] = -1.0
-    out[:, 3] = 1.0
+    out[:, 2].fill_(-1.0)  # fill_, not a number assigned: no host tensor made
+    out[:, 3].fill_(1.0)
     out[:, :, :H, :W] = plane.permute(0, 3, 1, 2)
     return out
 
@@ -459,7 +466,7 @@ def _ncc_from_sums(s_r, s_rr, s_s, s_ss, s_rs, count: int) -> torch.Tensor:
     """cost = clamp(1 - cov / sqrt(var_r var_s), 0, 2), rsqrt form;
     degenerate patches -> COST_MAX (APD.cu:592-610). The moments round as
     the volume path's (``ncc_volume.ncc_moments``)."""
-    inv = torch.tensor(1.0 / count, dtype=torch.float32, device=s_s.device)
+    inv = torch.full((), 1.0 / count, dtype=torch.float32, device=s_s.device)
     mr = s_r * inv
     ms = s_s * inv
     var_r, var_s, cov = ncc_volume.ncc_moments(s_rr, s_ss, s_rs, mr, ms, inv)

@@ -33,6 +33,8 @@ u_min, du, num_slices, pad_y, pad_x, dtype, trunc)``, which writes bf16
 precomputed pixel directions, ``build_volume(src_image, M, b, dirs, u_min,
 du, num_slices, dtype, trunc)``. ``pad_y=pad_x=0`` gives the reference's
 grid.
+
+:func:`launch_counters` names every wrapper that counts its launches.
 """
 
 from apdmvs_tpu_torch.ops.volume import (  # noqa: F401
@@ -42,3 +44,16 @@ from apdmvs_tpu_torch.ops.volume import (  # noqa: F401
     volume_sample,
     volume_sample_ref,
 )
+
+
+def launch_counters():
+    """Every kernel wrapper with a launch counter (``<wrapper>.launches``,
+    one added where it launches its kernel), by name."""
+    from apdmvs_tpu_torch.ops import cols, ncc_volume as nv, volume as vol
+
+    return {"build_volume": vol.build_volume, "ncc_cost": nv.ncc_cost,
+            "ncc_cost_views": nv.ncc_cost_views, "rebase_view": nv.build_rebased_view,
+            "geom_cost": nv.geom_volume_cost_view, "geom_cost_views": nv.geom_cost_views,
+            "gather_cols": cols.gather_cols, "contract_lookup": cols.contract_lookup,
+            "gather_rows": cols.gather_rows, "gather_rows_sorted": cols.gather_rows_sorted,
+            "volume_sample": vol.volume_sample}

@@ -33,6 +33,12 @@ The bodies, each over the problems of one view row:
   volume, so on a space mesh each problem runs whole on its row's first
   device (the JAX package's outputs do not depend on the sharding either).
 
+On one card each problem's pass is the compiled
+``pipeline.patchmatch_pass`` (a CUDA graph per static key, replayed).
+Passes over a spaced set, whose slabs may lie on several devices, and the
+passes of a run of several processes call ``pipeline.patchmatch_pass_impl``,
+the body, whose capture is later work (ROADMAP queue 1).
+
 On geometric passes problem i's source depths are ``all_depths[src_index[i]]``
 from the full depth stack (the reference's all-gather over the view axis is
 a ``.to(device)`` within a process and ``multihost.all_gather_rows``
@@ -226,6 +232,16 @@ def build_batch_image_volumes(images: torch.Tensor, cams: Cameras, num_slices: i
     return stacked
 
 
+def _pass_fn(spaced: bool):
+    """The compiled pass, or its body over a spaced set or in a run of
+    several processes (see the module docstring)."""
+    from apdmvs_tpu_torch.parallel import multihost
+
+    if spaced or multihost.world_size() > 1:
+        return pipeline.patchmatch_pass_impl
+    return pipeline.patchmatch_pass
+
+
 def _depth_maps(all_depths, src_index, i: int) -> torch.Tensor:
     return all_depths[torch.as_tensor(src_index[i], dtype=torch.int64,
                                       device=all_depths.device)]
@@ -251,6 +267,7 @@ def _volume_batched_pass(images, cams: Cameras, src_valid, prior: pipeline.PassS
     spaced = devices is not None and len(devices) > 1
     m_pre = 0 if prebuilt is None or spaced else prebuilt.E.shape[0]
     build_cv = cfg.use_APD if m_pre == 0 else prebuilt.C36 is not None
+    run_pass = _pass_fn(spaced)
     outs = []
     for i in range(images.shape[0]):
         cams_i = problem_row(cams, i)
@@ -267,7 +284,7 @@ def _volume_batched_pass(images, cams: Cameras, src_valid, prior: pipeline.PassS
                                                weak_cost_volumes=build_cv))
             if use_geom:
                 vols = ncc.add_depth_volumes(vols, depth_maps, cams_i, dmin, dmax)
-        outs.append(pipeline.patchmatch_pass(
+        outs.append(run_pass(
             cams_i, src_valid[i], problem_row(prior, i), draws[i], cfg, vols,
             weak_capacity=weak_capacity, ransac_threshold=float(ransac_threshold[i])))
         del vols
@@ -278,7 +295,8 @@ def _batched_pass(images, cams: Cameras, src_valid, prior: pipeline.PassState,
                   draws: Sequence, ransac_threshold, all_depths, src_index, cfg: PassConfig,
                   weak_capacity: int, use_geom: bool) -> pipeline.PassOutputs:
     """The direct-warp path over one view row's problems (no volume)."""
-    outs = [pipeline.patchmatch_pass(
+    run_pass = _pass_fn(False)
+    outs = [run_pass(
         problem_row(cams, i), src_valid[i], problem_row(prior, i), draws[i], cfg,
         weak_capacity=weak_capacity, ransac_threshold=float(ransac_threshold[i]),
         images=images[i],

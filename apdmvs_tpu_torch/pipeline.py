@@ -17,11 +17,19 @@ The weak stages (``weak.py``) run on passes with ``use_APD`` over a
 worklist of the prior's WEAK pixels whose capacity the caller sizes
 (``scene._bucket_capacity``).
 
+Two entries, as in the JAX package: :func:`patchmatch_pass_impl` is the
+pass's body, run operator by operator from Python (the counterpart of
+``apdmvs_tpu.pipeline.patchmatch_pass_impl``), and :func:`patchmatch_pass`
+the compiled pass, the counterpart of its ``jax.jit`` with static ``cfg``,
+``weak_capacity`` and ``debug``: on a card the body is captured once per
+static key as a CUDA graph and replayed (``compiled.py``); on the CPU it
+is the body.
+
 Each stage runs inside a ``torch.profiler.record_function`` span named
-``apd.<stage>`` (:data:`STAGES`), which a profiler run records
+``apd.<stage>`` (:data:`STAGES`), which a profiler run of the body records
 (``scene.run_scene(profile_dir=)``, ``trace_pass``) and ``timeline`` reads
 back; a span adds no synchronisation, and without an active profiler it
-costs a few microseconds.
+costs a few microseconds. A replay records no span.
 
 Two paths compute the pass: the volume path (``volumes``: the plane-sweep
 volumes and the kernels H1-H6) and the direct-warp path (``volumes``
@@ -93,6 +101,37 @@ def _span(stage: str):
 
 
 def patchmatch_pass(
+    cams: Cameras,
+    src_valid: torch.Tensor,
+    prior: PassState,
+    draws,
+    cfg: PassConfig,
+    volumes=None,
+    weak_capacity: int = 0,
+    ransac_threshold=0.005,
+    images: Optional[torch.Tensor] = None,
+    depth_maps: Optional[torch.Tensor] = None,
+    debug: bool = False,
+):
+    """The compiled pass: :func:`patchmatch_pass_impl`'s signature and
+    results. On a CUDA device the body is captured once per static key
+    (``compiled.static_key``: the device, the shapes, ``cfg``,
+    ``weak_capacity``, ``debug``, the path and the volumes present) as a
+    CUDA graph and replayed from static input slots (``compiled.py``); a
+    capture or replay that fails raises with its key, and nothing runs the
+    body eagerly in its place. A spaced volume set is refused on a card:
+    call :func:`patchmatch_pass_impl` for it. On the CPU this is the body,
+    since CUDA graphs are a CUDA feature."""
+    if cams.device.type != "cuda":
+        return patchmatch_pass_impl(cams, src_valid, prior, draws, cfg, volumes, weak_capacity,
+                                    ransac_threshold, images, depth_maps, debug)
+    from apdmvs_tpu_torch import compiled
+
+    return compiled.run(cams, src_valid, prior, draws, cfg, volumes, weak_capacity,
+                        ransac_threshold, images, depth_maps, debug)
+
+
+def patchmatch_pass_impl(
     cams: Cameras,  # ref depth range pre-scaled by 0.6/1.2 (APD.cpp:454-455)
     src_valid: torch.Tensor,  # [V] bool
     prior: PassState,
@@ -100,13 +139,15 @@ def patchmatch_pass(
     cfg: PassConfig,
     volumes=None,  # VolumeSet or SpacedVolumeSet (+ depth volumes on geom passes)
     weak_capacity: int = 0,
-    ransac_threshold: float = 0.005,
+    ransac_threshold=0.005,  # a number or a 0-d float32 tensor on the pass's device
     images: Optional[torch.Tensor] = None,  # [V, H, W], the direct-warp path's input
     depth_maps: Optional[torch.Tensor] = None,  # [V, H, W], its geometric passes' input
     debug: bool = False,
 ):
-    """One full pass over one reference view. ``draws`` is a draw source
-    (rng.py). On the volume path ``volumes`` must carry D when
+    """One full pass over one reference view, run operator by operator
+    (the body that :func:`patchmatch_pass` captures; the entry for a
+    profiler run, whose spans a replay would not record). ``draws`` is a
+    draw source (rng.py). On the volume path ``volumes`` must carry D when
     ``cfg.geom_consistency``, and C36 and C9 when the pass runs the weak
     machinery (``cfg.use_APD`` and ``weak_capacity`` > 0). Without volumes
     the pass reads ``images`` and, when ``cfg.geom_consistency``,

@@ -14,7 +14,9 @@ once an iteration is summed over the pass), ``pass_ms`` the least wall of
 the passes without per-stage synchronises (ending in one), and the device
 with its power limit (``bench.device_name``). ``--no-volumes`` runs the
 pass on the direct-warp path (no volume, no kernel), as
-``chip_smoke.py`` phase 12 does.
+``chip_smoke.py`` phase 12 does. Every pass here is the body,
+``pipeline.patchmatch_pass_impl``: a stage synchronises the device around
+it, which a captured pass cannot do (a replay runs no span).
 
 :func:`stage_timed` is what this module times with;
 :func:`_stage_timed` times the functions of :data:`DIRECT_STAGES` the same
@@ -100,14 +102,14 @@ def measure(width: int = 640, height: int = 480, views: int = 5, device="cuda",
         vs, prior, cap, _ = bench.flagship_state(images, depths, normals, cams)
 
         def run(seed):
-            return bench.flagship_pass(cams, vs, prior, cap, seed)
+            return bench.flagship_pass(cams, vs, prior, cap, seed, eager=True)
     else:
         prior, cap = bench.flagship_prior(depths, normals, views, dev)
         sv = torch.arange(views, device=dev) > 0
         imgs, dms = torch.as_tensor(images, device=dev), torch.as_tensor(depths, device=dev)
 
         def run(seed):
-            return pipeline.patchmatch_pass(
+            return pipeline.patchmatch_pass_impl(
                 cams, sv, prior, rng.TorchDraws(seed, height, width, dev), bench.FLAGSHIP_CFG,
                 weak_capacity=cap, ransac_threshold=bench.FLAGSHIP_RTH, images=imgs,
                 depth_maps=dms)

@@ -116,7 +116,7 @@ def joint_view_selection(cost_array, priors, iter_idx: int, u) -> Tuple[torch.Te
     cost_array: [8, V, H, W]; priors: [V, H, W]; u: [S, H, W] uniform draws
     in [0, 1). Returns (view_weights [V,H,W] counts, weight_norm [H,W],
     temp_selected [V,H,W] bool)."""
-    it = torch.tensor(float(iter_idx), dtype=torch.float32, device=cost_array.device)
+    it = torch.full((), float(iter_idx), dtype=torch.float32, device=cost_array.device)
     thr = 0.8 * torch.exp(it ** 2 / -90.0)
     good = cost_array < thr
     count = torch.sum(good, dim=0).to(torch.float32)
@@ -176,7 +176,7 @@ def propagate_strong_color(ctx: CostContext, st: StrongState, pixel_state, iter_
     cost_vec_now = cv9[:, 8]
     cost_array = torch.where(flags[:, None], cost_array, 0.0)
 
-    near_flags = flags[[0, 2, 4, 6]]
+    near_flags = flags[0::2]  # candidates 0, 2, 4, 6: the near ring
     priors = neighbor_view_priors(selected, near_flags, ctx.src_valid)
     weights, weight_norm, temp_sel = joint_view_selection(
         cost_array, priors, iter_idx, draws.view_selection(iter_idx, color)

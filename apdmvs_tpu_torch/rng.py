@@ -27,11 +27,18 @@ worklist's capacity):
     u_angles [N,3])
 
 Uniforms lie in [0, 1); Gaussians are standard normal.
+
+A :class:`DrawPlan` lets a captured pass (``compiled.py``) take its draws
+from any source: a warm-up pass records the requests, in order, and keeps
+their answers on the device as slots; the captured pass reads the slots,
+and before each replay :meth:`DrawPlan.fill` asks the replay's own source
+the same requests in the same order and copies the answers in, so a
+replay sees the bits the eager pass would have drawn.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -90,3 +97,85 @@ class TorchDraws:
 
     def weak_refinement(self, it: int, n: int):
         return self._u(n), self._g(n, 3), self._u(n), self._u(n, 3)
+
+
+#: the requests of a draw source, as the pass makes them
+REQUESTS = ("init_plane", "view_selection", "refinement", "anchor_probes", "anchor_ransac",
+            "fit_ransac", "weak_view_selection", "weak_refinement")
+
+
+def _flat(answer) -> List[torch.Tensor]:
+    return list(answer) if isinstance(answer, tuple) else [answer]
+
+
+class _Recorder:
+    """A draw source that forwards each request to ``source`` and records
+    it in ``plan``, its answer moved to ``device`` as the request's slots."""
+
+    def __init__(self, source, plan: "DrawPlan", device):
+        self._source, self._plan, self._device = source, plan, torch.device(device)
+
+    def _request(self, name: str, *args):
+        answer = getattr(self._source, name)(*args)
+        slots = tuple(torch.as_tensor(a, device=self._device).contiguous()
+                      for a in _flat(answer))
+        self._plan.requests.append((name, args))
+        self._plan.slots.append(slots if isinstance(answer, tuple) else slots[0])
+        return self._plan.slots[-1]
+
+
+class _Reader:
+    """A draw source that answers ``plan``'s requests from its slots, in
+    order, and raises on a request the plan does not hold."""
+
+    def __init__(self, plan: "DrawPlan"):
+        self._plan, self._next = plan, 0
+
+    def _request(self, name: str, *args):
+        i = self._next
+        held = self._plan.requests[i] if i < len(self._plan.requests) else None
+        if held != (name, args):
+            raise RuntimeError(f"draw request {i} is {name}{args}, the plan holds {held}")
+        self._next += 1
+        return self._plan.slots[i]
+
+
+for _name in REQUESTS:
+    def _method(self, *args, _name=_name):
+        return self._request(_name, *args)
+
+    setattr(_Recorder, _name, _method)
+    setattr(_Reader, _name, _method)
+
+
+class DrawPlan:
+    """The draw requests of one pass, (name, arguments) in order, each
+    with its answer's slots: tensors on the pass's device that keep their
+    addresses, so a CUDA graph can read them."""
+
+    def __init__(self):
+        self.requests: List[tuple] = []
+        self.slots: list = []  # a tensor, or a tuple of them, a request
+
+    @classmethod
+    def record(cls, source, device) -> Tuple["DrawPlan", _Recorder]:
+        """A new plan and the source that fills it: hand the recorder to
+        the warm-up pass; its answers are ``source``'s, and stay as the
+        slots."""
+        plan = cls()
+        return plan, _Recorder(source, plan, device)
+
+    def reader(self) -> _Reader:
+        """A draw source answering this plan's requests from the slots."""
+        return _Reader(self)
+
+    def fill(self, source) -> None:
+        """Ask ``source`` this plan's requests in order and copy each
+        answer into its slots (on the slots' stream order, no host read)."""
+        for (name, args), slots in zip(self.requests, self.slots):
+            answer, slots = _flat(getattr(source, name)(*args)), _flat(slots)
+            if len(answer) != len(slots):
+                raise RuntimeError(f"draw request {name}{args} answered {len(answer)} tensors, "
+                                   f"the plan holds {len(slots)}")
+            for slot, a in zip(slots, answer):
+                slot.copy_(a)

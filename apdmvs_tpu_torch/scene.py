@@ -96,6 +96,45 @@ def _bucket_capacity(count: int, total: int) -> int:
     return min(cap, total)
 
 
+#: device bytes a pass holds for its own work, per pixel of each view: an
+#: upper bound of the eager working set (the two-round 1280x960x5 scene's
+#: peak less its set and depth volumes, PERF.md); a compiled pass holds
+#: as much again in its graph pool
+PASS_BYTES_PER_PIXEL_VIEW = 1024
+#: draw slot bytes of a compiled pass per pixel: the strong sweeps' ~576
+#: and the weak draws of a worklist over about a quarter of the pixels
+DRAW_BYTES_PER_PIXEL = 2048
+
+
+def volume_cache_budget(device, num_views: int, height: int, width: int,
+                        num_slices: int = 160, weak_cost_volumes: bool = True) -> float:
+    """The default byte budget of the pinned image-volume sets at one scale
+    on ``device``: its memory less what a pass there holds beside them.
+
+    On a card the memory is ``torch.cuda.get_device_properties(device)
+    .total_memory``, and a pass holds, beside the pinned sets: one more set
+    (built in the loop when not every set is pinned), the depth volumes D
+    twice (built view by view, then stacked), its working set
+    (:data:`PASS_BYTES_PER_PIXEL_VIEW`); and for the compiled pass
+    (``compiled.py``) its volume slots (a set and D), its graph pool (a
+    working set again) and its draw slots (:data:`DRAW_BYTES_PER_PIXEL`).
+    On the CPU the memory is the host's physical memory, and the compiled
+    pass's share is not held back (the CPU runs the body). Never below 0."""
+    dev = torch.device(device)
+    set_bytes = ncc.image_volume_set_nbytes(num_views, height, width, num_slices,
+                                            weak_cost_volumes)
+    Hp, Wp = ncc.padded_grid(height, width)
+    d_bytes = (num_views - 1) * num_slices * Hp * Wp * 4
+    work = PASS_BYTES_PER_PIXEL_VIEW * num_views * height * width
+    reserve = set_bytes + 2 * d_bytes + work
+    if dev.type == "cuda":
+        total = torch.cuda.get_device_properties(dev).total_memory
+        reserve += set_bytes + d_bytes + work + DRAW_BYTES_PER_PIXEL * height * width
+    else:
+        total = os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+    return float(max(0, total - reserve))
+
+
 @dataclasses.dataclass(frozen=True)
 class ProblemStats:
     """Per-(view, pass) wall-clock seconds (ending in a device sync), the
@@ -113,25 +152,32 @@ class SceneCache:
     volume sets, reused across a round's passes within a byte budget
     (first come, pinned; cleared when the scale changes).
 
-    ``expected_sets`` is the number of problems sharing a scale: caching is
-    all-or-nothing per scale, so pinned sets never sit beside every
-    uncached build."""
+    ``volume_cache_bytes`` None takes each scale's budget from
+    :func:`volume_cache_budget` on the pass's device. ``expected_sets`` is
+    the number of problems sharing a scale: caching is all-or-nothing per
+    scale, so pinned sets never sit beside every uncached build."""
 
     def __init__(self, dense_folder: str, camera_model: str = "eth",
-                 volume_cache_bytes: float = 6e9, expected_sets: Optional[int] = None):
+                 volume_cache_bytes: Optional[float] = None,
+                 expected_sets: Optional[int] = None):
         self.dense_folder = dense_folder
         self.camera_model = camera_model
         self._gray: Dict[int, np.ndarray] = {}
         self._cam: Dict[int, dict] = {}
         self._scaled: Dict[Tuple[int, int], np.ndarray] = {}
         self.outputs: Dict[int, Dict[str, np.ndarray]] = {}
-        self.volume_cache_bytes = float(volume_cache_bytes)
+        self.volume_cache_bytes = (None if volume_cache_bytes is None
+                                   else float(volume_cache_bytes))
         self._volumes: Dict[Tuple[int, int], ncc.VolumeSet] = {}
         self._volumes_width: Optional[int] = None
         self._volumes_bytes = 0
         self.expected_sets = expected_sets
 
-    def image_volumes(self, image_id: int, width: int, builder) -> ncc.VolumeSet:
+    def image_volumes(self, image_id: int, width: int, builder,
+                      budget: Optional[float] = None) -> ncc.VolumeSet:
+        """The cached set of (image_id, width), or ``builder()``'s, pinned
+        if it fits: within ``volume_cache_bytes`` when given, else within
+        ``budget`` (the scale's default, :func:`volume_cache_budget`)."""
         if self._volumes_width != width:
             self._volumes.clear()
             self._volumes_bytes = 0
@@ -141,10 +187,12 @@ class SceneCache:
         if vs is not None:
             return vs
         vs = builder()
+        cap = self.volume_cache_bytes if self.volume_cache_bytes is not None else budget
+        if cap is None:
+            raise ValueError("no volume cache budget: give volume_cache_bytes or budget")
         nbytes = sum(t.numel() * t.element_size() for t in vs if isinstance(t, torch.Tensor))
-        fits_scale = (self.expected_sets is None
-                      or self.expected_sets * nbytes <= self.volume_cache_bytes)
-        if fits_scale and self._volumes_bytes + nbytes <= self.volume_cache_bytes:
+        fits_scale = self.expected_sets is None or self.expected_sets * nbytes <= cap
+        if fits_scale and self._volumes_bytes + nbytes <= cap:
             self._volumes[key] = vs
             self._volumes_bytes += nbytes
         return vs
@@ -321,6 +369,7 @@ def process_problem(
     allow_missing_prior: bool = False,
     use_volumes: bool = True,
     debug_dumps: bool = False,
+    eager: bool = False,
 ) -> ProblemStats:
     """One (view, pass): the reference's ProcessProblem (main.cpp:91-138).
     Loads inputs, runs the pass on ``device``, clamps out-of-range depths
@@ -329,7 +378,10 @@ def process_problem(
     source views' depth maps. ``debug_dumps`` also writes the pass's debug
     probes (``debug.dump_probes``: the DEBUG_NEIGHBOUR and DEBUG_COST_LINE
     files) into the view's result folder, from the outputs before
-    clamping (``apdmvs_tpu/scene.py:440-446``)."""
+    clamping (``apdmvs_tpu/scene.py:440-446``). The pass is the compiled
+    ``pipeline.patchmatch_pass``; ``eager`` runs its body,
+    ``pipeline.patchmatch_pass_impl``, whose stage spans a profiler
+    records (a replay records none)."""
     t0 = time.perf_counter()
     device = torch.device(device)
     # the cached image volumes serve all of this (problem, scale)'s passes, so
@@ -365,6 +417,7 @@ def process_problem(
             builder=lambda: ncc.build_image_volume_set(
                 images, cams, dmin, dmax, num_slices=num_slices,
                 weak_cost_volumes=round_use_apd),
+            budget=volume_cache_budget(device, V, H, W, num_slices, round_use_apd),
         )
     if spec.geom_consistency:
         dm = _load_src_depths(cache, problem, view_ids, W, H)
@@ -377,7 +430,8 @@ def process_problem(
             spec = dataclasses.replace(spec, geom_consistency=False)
 
     draws = rng.TorchDraws(rng.pass_seed(seed, spec.pass_index, problem.index), H, W, device)
-    out = pipeline.patchmatch_pass(
+    run_pass = pipeline.patchmatch_pass_impl if eager else pipeline.patchmatch_pass
+    out = run_pass(
         cams, torch.as_tensor(inp.src_valid, device=device), prior, draws,
         PassConfig.from_spec(spec), volumes, weak_capacity=weak_capacity,
         ransac_threshold=spec.ransac_threshold, images=images, depth_maps=depth_maps,
@@ -471,7 +525,7 @@ def run_scene(
     min_rounds: Optional[int] = None,
     camera_model: str = "eth",
     allow_missing_prior: bool = False,
-    volume_cache_gb: float = 6.0,
+    volume_cache_gb: Optional[float] = None,
     verbose: bool = True,
     num_slices: int = 160,
     use_volumes: bool = True,
@@ -495,12 +549,20 @@ def run_scene(
     volumes stay on by default on every device, the CPU included, where
     the reference package turns them off.
 
+    Each pass is the compiled ``pipeline.patchmatch_pass`` (a CUDA graph
+    per static key on a card). The image-volume sets of a scale are pinned
+    within ``volume_cache_gb`` when given, else within the scale's
+    :func:`volume_cache_budget` on ``device``; the cache changes when sets
+    are built, never the results.
+
     ``debug_dumps`` writes every pass's debug probes into its view's result
     folder (:func:`process_problem`). ``profile_dir`` records the passes
     (not the fusion) under ``torch.profiler``, the CPU's activity and, on a
     card, the card's, and writes one Chrome trace to
     ``profile_dir/trace.json``, which ``python -m apdmvs_tpu_torch.timeline``
-    reads. A large run makes a large file: 1.94 GB for a two-round
+    reads; the passes then run ``pipeline.patchmatch_pass_impl``, the
+    body, so that the trace holds its stage spans. A large run makes a
+    large file: 1.94 GB for a two-round
     640x480x5 run (40 view-passes, 105 s traced, the export included) on
     an NVIDIA H100. If the profiler cannot start, the run fails."""
     device = resolve_device(device)
@@ -519,7 +581,8 @@ def run_scene(
     if verbose:
         print(f"Round num: {round_num}")
     cache = SceneCache(dense_folder, camera_model=camera_model,
-                       volume_cache_bytes=volume_cache_gb * 1e9, expected_sets=len(problems))
+                       volume_cache_bytes=None if volume_cache_gb is None
+                       else volume_cache_gb * 1e9, expected_sets=len(problems))
     V_pad = max(1 + len(p.src_image_ids) for p in problems)
     passes = []
     profiler = _profiler(device) if profile_dir else contextlib.nullcontext()
@@ -530,7 +593,7 @@ def run_scene(
                     cache, problem, spec, full_size, seed, device, num_views_pad=V_pad,
                     show_medium_result=show_medium_result, num_slices=num_slices,
                     allow_missing_prior=allow_missing_prior, use_volumes=use_volumes,
-                    debug_dumps=debug_dumps,
+                    debug_dumps=debug_dumps, eager=profile_dir is not None,
                 )
                 passes.append((spec, problem, stats))
                 if verbose:
@@ -597,7 +660,7 @@ def run_scene_batched(
     verbose: bool = True,
     use_volumes: bool = True,
     num_slices: int = 160,
-    volume_cache_gb: float = 6.0,
+    volume_cache_gb: Optional[float] = None,
     devices=None,
 ) -> SceneRun:
     """Batched reconstruction (``apdmvs_tpu/scene.py:485-890``): every
@@ -624,7 +687,8 @@ def run_scene_batched(
     depth stack of every process (Jacobi; the sequential runner is
     Gauss-Seidel, both the reference package's own semantics). Image
     volumes (``use_volumes``, on by default on every device) are pinned
-    once per scale within ``volume_cache_gb`` a device, per problem: each
+    once per scale within ``volume_cache_gb`` a device (None: the scale's
+    :func:`volume_cache_budget` on each device), per problem: each
     view row's first M sets that fit, one set held back for the loop's own
     build when not all do; the rest are rebuilt every pass. A space mesh
     pins nothing: its slabs are built every pass. Each process persists
@@ -770,12 +834,13 @@ def run_scene_batched(
 
 
 def _pin_row_sets(mesh, N: int, images, cams, V: int, H: int, W: int, num_slices: int,
-                  weak_cost_volumes: bool, volume_cache_gb: float, verbose: bool):
+                  weak_cost_volumes: bool, volume_cache_gb: Optional[float], verbose: bool):
     """The once-per-scale pinned image-volume sets of each of this
     process's view rows (``parallel.build_batch_image_volumes`` on the
     row's device), each row's first M problems that fit the row's share of
-    ``volume_cache_gb`` (rows sharing a device split its budget). Returns
-    the per-row list ``sharded_batch_pass`` takes (None: nothing pinned)."""
+    ``volume_cache_gb`` (None: :func:`volume_cache_budget` of the row's
+    device; rows sharing a device split its budget). Returns the per-row
+    list ``sharded_batch_pass`` takes (None: nothing pinned)."""
     from apdmvs_tpu_torch import parallel
 
     per_set = ncc.image_volume_set_nbytes(V, H, W, num_slices,
@@ -789,7 +854,9 @@ def _pin_row_sets(mesh, N: int, images, cams, V: int, H: int, W: int, num_slices
     for r in rows:
         n = len(mesh.row_problems(r, N))
         dev = mesh.devices[r][0]
-        M = parallel.pinned_count(per_set, n, volume_cache_gb * 1e9 / sharing[dev])
+        budget = (volume_cache_budget(dev, V, H, W, num_slices, weak_cost_volumes)
+                  if volume_cache_gb is None else volume_cache_gb * 1e9)
+        M = parallel.pinned_count(per_set, n, budget / sharing[dev])
         if M:
             pinned[r] = parallel.build_batch_image_volumes(
                 images[a:a + M].to(dev), geometry.Cameras(*(f[a:a + M].to(dev) for f in cams)),
@@ -798,7 +865,8 @@ def _pin_row_sets(mesh, N: int, images, cams, V: int, H: int, W: int, num_slices
         a += n
     if verbose:
         print(f"volume cache: pinning {total_m}/{a} problems' image-volume sets "
-              f"({per_set / 1e9:.2f} GB each, budget {volume_cache_gb} GB a device)"
+              f"({per_set / 1e9:.2f} GB each, budget {budget / 1e9:.2f} GB a device"
+              + (")" if volume_cache_gb is not None else ", derived from its memory)")
               + ("" if total_m == a else "; the rest rebuild every pass"))
     return pinned
 

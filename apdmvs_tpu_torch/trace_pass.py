@@ -14,6 +14,10 @@ Profiles, each under ``torch.profiler`` after a warm-up:
    geometric APD view-pass of view 0 again, image-volume builds included
    (five sets at that size exceed the volume cache).
 
+Every pass here is the body, ``pipeline.patchmatch_pass_impl`` (the
+sequential runner's ``eager``): its stage spans are what the ledger reads,
+and a replay of the compiled pass records none.
+
 For each it prints the wall time (host clock, ending in a device sync), the
 device busy time (the union of kernel and copy intervals on the card) and
 idle share over the device's window, the kernels that take the most device
@@ -39,8 +43,8 @@ import time
 import torch
 
 from apdmvs_tpu_torch import geometry, ncc, rng, scene, timeline, weak
-from apdmvs_tpu_torch.bench import (FLAGSHIP_CFG, FLAGSHIP_RTH, flagship_pass, flagship_scene,
-                                    flagship_state)
+from apdmvs_tpu_torch.bench import (FLAGSHIP_CFG, FLAGSHIP_RTH, _sync, flagship_pass,
+                                    flagship_scene, flagship_state)
 from apdmvs_tpu_torch.datasets import synthetic
 from apdmvs_tpu_torch.ops import cols
 from apdmvs_tpu_torch.params import build_schedule
@@ -104,31 +108,33 @@ def flagship_h6_calls(cams, vs, prior, cap, seed: int):
         return kernel(cols_t, k, nearest)
 
     cols.contract_lookup = watched
-    try:
-        flagship_pass(cams, vs, prior, cap, seed)
+    try:  # the body: a replay calls no wrapper
+        flagship_pass(cams, vs, prior, cap, seed, eager=True)
     finally:
         cols.contract_lookup = kernel
     return seen
 
 
-def profiled(run, path: str, top: int = 20):
-    """``run()`` on the card under ``torch.profiler`` (as
+def profiled(run, path: str, top: int = 20, device="cuda"):
+    """``run()`` on ``device`` under ``torch.profiler`` (as
     ``scene.run_scene(profile_dir=)`` records), its Chrome trace written to
     ``path``; returns (run's result, wall ms ending in a device synchronise,
     ``timeline``'s ledger of the trace)."""
-    torch.cuda.synchronize()
-    with scene._profiler(torch.device("cuda")) as prof:
+    dev = torch.device(device)
+    _sync(dev)
+    with scene._profiler(dev) as prof:
         t0 = time.perf_counter()
         out = run()
-        torch.cuda.synchronize()
+        _sync(dev)
         wall_ms = (time.perf_counter() - t0) * 1e3
     prof.export_chrome_trace(path)
     return out, wall_ms, timeline.read(path, top=top)
 
 
-def _profile_pass(run, out_dir, tag, top):
+def _profile_pass(run, out_dir, tag, top, device="cuda"):
     with tempfile.TemporaryDirectory() as tmp:
-        _, wall_ms, led = profiled(run, os.path.join(out_dir or tmp, f"{tag}.json"), top)
+        _, wall_ms, led = profiled(run, os.path.join(out_dir or tmp, f"{tag}.json"), top,
+                                   device)
     busy_ms = led["busy_ms"]
     print(f"{tag}: wall {wall_ms:.3f} ms, device busy "
           + (f"{busy_ms:.3f} ms of a {led['window_ms']:.3f} ms window (idle share "
@@ -139,6 +145,17 @@ def _profile_pass(run, out_dir, tag, top):
     if not out_dir:  # the trace went with the temporary directory
         del led["trace"]
     print(json.dumps(dict(tag=tag, wall_ms=wall_ms, **led)))
+
+
+def trace_flagship(out_dir, top: int, device="cuda", width: int = W, height: int = H,
+                   views: int = V) -> None:
+    """Part 2 of the module docstring: the flagship pass profiled after a
+    warm-up, both the body."""
+    images, depths, normals, tcams = flagship_scene(width, height, views, device)
+    vs, prior, cap, _ = flagship_state(images, depths, normals, tcams)
+    flagship_pass(tcams, vs, prior, cap, 0, eager=True)
+    _profile_pass(lambda: flagship_pass(tcams, vs, prior, cap, 1, eager=True), out_dir,
+                  "flagship_apd_pass", top, device)
 
 
 def main(argv=None) -> None:
@@ -160,20 +177,16 @@ def main(argv=None) -> None:
         cache = scene.SceneCache(folder, expected_sets=len(problems))
         first, geom = build_schedule(1)[:2]
         for p in problems:  # cache the image volumes, as a round does after its first pass
-            scene.process_problem(cache, p, first, (W, H), 0, "cuda", num_views_pad=V)
+            scene.process_problem(cache, p, first, (W, H), 0, "cuda", num_views_pad=V,
+                                  eager=True)
         print(f"device: {torch.cuda.get_device_name(0)}; scene {V} views {W}x{H}, K=160")
         for spec, tag in ((first, "first_init_pass"), (geom, "refine_iter_geom_pass")):
             _profile_pass(lambda: scene.process_problem(cache, problems[0], spec, (W, H), 0,
-                                                        "cuda", num_views_pad=V),
+                                                        "cuda", num_views_pad=V, eager=True),
                           args.out, tag, args.top)
         del cache
 
-        images, depths, normals, tcams = flagship_scene(W, H, V, "cuda")
-        vs, prior, cap, _ = flagship_state(images, depths, normals, tcams)
-        flagship_pass(tcams, vs, prior, cap, 0)
-        _profile_pass(lambda: flagship_pass(tcams, vs, prior, cap, 1), args.out,
-                      "flagship_apd_pass", args.top)
-        del vs, prior
+        trace_flagship(args.out, args.top)
         torch.cuda.empty_cache()
 
         shutil.rmtree(folder, ignore_errors=True)
@@ -186,7 +199,7 @@ def main(argv=None) -> None:
         cache = scene.SceneCache(folder, expected_sets=len(problems))
         last = build_schedule(2)[-1]
         _profile_pass(lambda: scene.process_problem(cache, problems[0], last, (W2, H2), 0, "cuda",
-                                                    num_views_pad=V),
+                                                    num_views_pad=V, eager=True),
                       args.out, "round1_geom_apd_pass_1280x960", args.top)
     finally:
         shutil.rmtree(folder, ignore_errors=True)

@@ -116,8 +116,8 @@ and no ``ok`` line is printed:
 10. bench: ``apdmvs_tpu_torch.bench``'s measurement (depth-maps/s of the
    flagship pass with amortized volume builds, median of 5, and
    ``batched_maps_per_sec``: 4 copies of the flagship problem through the
-   batched runner's volume path, 2 of their 4 image-volume sets pinned in
-   6 GB), its JSON line printed.
+   batched runner's volume path, their image-volume sets pinned within the
+   default budget, ``scene.volume_cache_budget``), its JSON line printed.
 11. batched: the one-round scene of phase 3 through
    ``scene.run_scene_batched`` on the card (H1, H2 through
    ``ncc_cost_views`` and H4 through ``geom_cost_views`` must launch, H3
@@ -170,12 +170,37 @@ and no ``ok`` line is printed:
    round-1 pass with a worklist), the trace holds every ``apd.*`` span and
    the kernels of H1, H2, H4, H5 and H6 by name, and phase 3's checks. The
    phase prints its seconds; the walls of traced runs are not compared with
-   untraced ones.
+   untraced ones. Its traced passes run ``pipeline.patchmatch_pass_impl``,
+   the body, whose stage spans a replay would not record.
+15. compiled: ``pipeline.patchmatch_pass``, the body captured once per
+   static key as a CUDA graph and replayed (``compiled.py``), the only pass
+   of every phase above but the traced, stage-timed and sharded ones. The
+   default volume cache at 1280x960x5 (its budget and the sets it pins).
+   For each key (the one-round scene's FIRST_INIT and geometric
+   REFINE_ITER, the flagship APD pass, the same with ``debug=True``, the
+   flagship on the direct-warp path, all at 640x480 from views 0 and 1 of
+   the ring scene; and the two-round scene's last round-1 pass of views 0
+   and 1 at 1280x960 from phase 7's state files, in the larger of their
+   worklist buckets): its capture (warm-up, capture and instantiate ms,
+   graph nodes), a replay held against ``patchmatch_pass_impl`` on the
+   same inputs and draws (every output field and probe bit for bit, the
+   same launches per kernel), the second problem through the same graph
+   against its own eager run (bit for bit, no new key), the slot fill's
+   device ms, the median of 10 eager passes against 10 replays and the
+   peak memory of each. Then ``timeline``'s gap ledger of one traced
+   flagship replay (device events only: no span replays), the keys and
+   slot bytes at each scale, and the one-round scene run compiled and
+   eagerly (walls per view-pass, peaks, captures; state files byte-equal)
+   and the two-round scene run eagerly with ``volume_cache_gb=6``, its
+   state files byte-equal to phase 7's compiled run with the default
+   cache. One JSON line ``{"compiled": [...]}`` holds the keys' rows.
 
 Then it prints the ``kernels`` JSON line (launches: H1, H2 and H4 from
 phase 3, H5-H6 from phase 7, H3, H7 and H8 from phase 5, and each
-kernel's ``sharded`` launches from phase 13's 2 x 2 run; times in device
-time where the script takes it; phases 11, 12 and 14 launch no other kernel),
+kernel's ``sharded`` launches from phase 13's 2 x 2 run; a replay counts
+the launches its key's capture recorded, and a capture's warm-up pass
+counts its own; times in device time where the script takes it; phases
+11, 12, 14 and 15 launch no other kernel),
 the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the rest
 of the repository beside it, it fails before printing any result.
@@ -777,14 +802,9 @@ LIB_TOL = 0.05
 
 
 def _counters():
-    from apdmvs_tpu_torch.ops import cols, ncc_volume as nv, volume as vol
+    from apdmvs_tpu_torch import ops
 
-    return {"build_volume": vol.build_volume, "ncc_cost": nv.ncc_cost,
-            "ncc_cost_views": nv.ncc_cost_views, "rebase_view": nv.build_rebased_view,
-            "geom_cost": nv.geom_volume_cost_view, "geom_cost_views": nv.geom_cost_views,
-            "gather_cols": cols.gather_cols, "contract_lookup": cols.contract_lookup,
-            "gather_rows": cols.gather_rows, "gather_rows_sorted": cols.gather_rows_sorted,
-            "volume_sample": vol.volume_sample}
+    return ops.launch_counters()
 
 
 def _off_by_one(x):
@@ -1693,8 +1713,8 @@ def phase_two_rounds(dev, folder):
     torch.cuda.synchronize()
     nbytes = sum(t.numel() * t.element_size() for t in vs if isinstance(t, torch.Tensor))
     log(f"two rounds: one image-volume set at {W2}x{H2} (E, C36, C9) builds in "
-        f"{1e3 * (time.perf_counter() - t0):.1f} ms, {nbytes / 1e9:.2f} GB; round 1 rebuilds it "
-        "every pass (5 sets exceed the 6 GB cache)")
+        f"{1e3 * (time.perf_counter() - t0):.1f} ms, {nbytes / 1e9:.2f} GB; the default cache "
+        f"holds all {V}: {V * nbytes <= scene.volume_cache_budget(dev, V, H2, W2, K)}")
     del vs, imgs
     torch.cuda.empty_cache()
 
@@ -1942,8 +1962,8 @@ def phase_direct(dev, inputs, walls):
     prior, cap = bench.flagship_prior(depths, normals, V, dev)
     sv = torch.arange(V, device=dev) > 0
 
-    def flagship():
-        return pipeline.patchmatch_pass(
+    def flagship():  # the body: its stages synchronise, which no replay can
+        return pipeline.patchmatch_pass_impl(
             cams, sv, prior, rng.TorchDraws(1, H, W, dev), bench.FLAGSHIP_CFG,
             weak_capacity=cap, ransac_threshold=bench.FLAGSHIP_RTH,
             images=torch.as_tensor(images, device=dev),
@@ -2248,7 +2268,8 @@ def phase_debug_profile(dev, inputs, folder_2r):
     try:
         # (a) the flagship pass with and without debug, the same draws
         vs, prior, cap, _ = bench.flagship_state(images, depths, normals, cams, K)
-        bench.flagship_pass(cams, vs, prior, cap, 0)
+        for with_probes in (False, True):  # each key captured (a warm-up pass and a replay)
+            bench.flagship_pass(cams, vs, prior, cap, 0, debug=with_probes)
         ref, launches_ref = _run_counted(bench.flagship_pass, cams, vs, prior, cap, 1)[::2]
         (out, probes), launches = _run_counted(bench.flagship_pass, cams, vs, prior, cap, 1,
                                                debug=True)[::2]
@@ -2279,7 +2300,8 @@ def phase_debug_profile(dev, inputs, folder_2r):
         del ref, out, probes
 
         # (c) idle shares: the bench's flagship pass, then on 4 row slabs
-        _, wall, led = profiled(lambda: bench.flagship_pass(cams, vs, prior, cap, 2),
+        _, wall, led = profiled(lambda: bench.flagship_pass(cams, vs, prior, cap, 2,
+                                                            eager=True),
                                 os.path.join(out_dir, "flagship.json"), 5)
         _log_ledger("flagship pass", wall, led, t_phase)
         log("flagship pass: the host calls that launched each kernel "
@@ -2298,7 +2320,7 @@ def phase_debug_profile(dev, inputs, folder_2r):
         sv = torch.arange(V, device=dev) > 0
         imgs_t, dms_t = (torch.as_tensor(x, device=dev) for x in (images, depths))
         _, wall, led = profiled(
-            lambda: pipeline.patchmatch_pass(
+            lambda: pipeline.patchmatch_pass_impl(
                 cams, sv, prior, rng.TorchDraws(2, H, W, dev), bench.FLAGSHIP_CFG,
                 weak_capacity=cap, ransac_threshold=bench.FLAGSHIP_RTH, images=imgs_t,
                 depth_maps=dms_t),
@@ -2376,6 +2398,330 @@ def phase_debug_profile(dev, inputs, folder_2r):
     return seconds
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the compiled pass
+# ---------------------------------------------------------------------------
+
+
+def _bits_equal(a, b) -> bool:
+    """Equal bit for bit (NaN where the other has NaN, -0.0 apart from +0.0)."""
+    import torch
+
+    if a is None or b is None:
+        return a is None and b is None
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        a, b = a.view(bits), b.view(bits)
+    return bool(torch.equal(a, b))
+
+
+def _fields_equal(x, y):
+    """Per output field (and probe under ``debug``), whether two passes'
+    results are bit-equal."""
+    from apdmvs_tpu_torch import pipeline
+
+    if isinstance(x, tuple) and isinstance(x[-1], pipeline.DebugProbes):
+        out = _fields_equal(x[0], y[0])
+        out.update({f"probe.{f}": _bits_equal(a, b)
+                    for f, a, b in zip(x[1]._fields, x[1], y[1])})
+        return out
+    return {f: _bits_equal(a, b) for f, a, b in zip(x._fields, x, y)}
+
+
+def _reordered(inputs, ref: int):
+    """The 640x480 ring scene with view ``ref`` as the reference: images,
+    depths, normals (numpy) and cameras in the new view order."""
+    from apdmvs_tpu_torch import geometry
+
+    _, _, images, depths, normals, cams = inputs
+    order = [ref] + [v for v in range(V) if v != ref]
+    return (images[order], depths[order], normals[order],
+            geometry.Cameras(*(f[order] for f in cams)))
+
+
+def _key_problems(name, dev, inputs):
+    """Two problems (keyword arguments of ``pipeline.patchmatch_pass``
+    without draws) that share the static key ``name``: views 0 and 1 of the
+    640x480 ring scene as the reference, the second with its own ransac
+    threshold where the pass reads one."""
+    import torch
+
+    from apdmvs_tpu_torch import bench, ncc, scene
+    from apdmvs_tpu_torch.params import PassConfig, PixelState, RunState
+
+    sv = torch.arange(V, device=dev) > 0
+    out = []
+    for ref, rth in ((0, bench.FLAGSHIP_RTH), (1, 0.0125)):
+        images, depths, normals, cams = _reordered(inputs, ref)
+        imgs = torch.as_tensor(images, device=dev)
+        dms = torch.as_tensor(depths, device=dev)
+        kw = dict(cams=cams, src_valid=sv, ransac_threshold=rth)
+        if name == "one-round FIRST_INIT":
+            kw.update(prior=scene._empty_prior(V, H, W, dev),
+                      cfg=PassConfig(state=RunState.FIRST_INIT, geom_consistency=False,
+                                     use_APD=False),
+                      volumes=ncc.build_image_volume_set(imgs, cams, bench.DMIN, bench.DMAX, K,
+                                                         weak_cost_volumes=False))
+        elif name == "one-round REFINE_ITER geometric":
+            prior, _ = bench.flagship_prior(depths, normals, V, dev)
+            vs = ncc.build_image_volume_set(imgs, cams, bench.DMIN, bench.DMAX, K,
+                                            weak_cost_volumes=False)
+            kw.update(prior=prior._replace(pixel_state=torch.full_like(
+                prior.pixel_state, int(PixelState.STRONG))),
+                cfg=PassConfig(state=RunState.REFINE_ITER, geom_consistency=True,
+                               use_APD=False),
+                volumes=ncc.add_depth_volumes(vs, dms, cams, bench.DMIN, bench.DMAX))
+        else:  # the flagship pass, on volumes, with debug, or on the direct-warp path
+            prior, cap = bench.flagship_prior(depths, normals, V, dev)
+            kw.update(prior=prior, cfg=bench.FLAGSHIP_CFG, weak_capacity=cap,
+                      debug=name == "flagship APD, debug")
+            if name == "flagship APD, direct-warp path":
+                kw.update(images=imgs, depth_maps=dms)
+            else:
+                vs = ncc.build_image_volume_set(imgs, cams, bench.DMIN, bench.DMAX, K)
+                kw["volumes"] = ncc.add_depth_volumes(vs, dms, cams, bench.DMIN, bench.DMAX)
+        out.append(kw)
+    return out
+
+
+def _scene_problems(folder, dev):
+    """Views 0 and 1 of the two-round scene's last round-1 pass (REFINE_ITER,
+    geometric, APD at 1280x960), as ``scene.process_problem`` would pass
+    them from the state files in ``folder``, both with the larger of their
+    worklist buckets (one key)."""
+    import inspect
+
+    from apdmvs_tpu_torch import pipeline, scene
+    from apdmvs_tpu_torch.params import build_schedule
+
+    class _Stop(Exception):
+        pass
+
+    problems = scene.generate_sample_list(folder)
+    cache = scene.SceneCache(folder, expected_sets=len(problems))
+    spec = build_schedule(2)[-1]
+    sig = inspect.signature(pipeline.patchmatch_pass_impl)
+    real, out = pipeline.patchmatch_pass, []
+
+    def spy(*args, **kwargs):
+        out.append(dict(sig.bind(*args, **kwargs).arguments))
+        raise _Stop
+
+    pipeline.patchmatch_pass = spy
+    try:
+        for i in (0, 1):
+            try:
+                scene.process_problem(cache, problems[i], spec, (W2, H2), 0, dev,
+                                      num_views_pad=V)
+            except _Stop:
+                pass
+    finally:
+        pipeline.patchmatch_pass = real
+    cap = max(kw["weak_capacity"] for kw in out)
+    for kw in out:
+        del kw["draws"]
+        kw["weak_capacity"] = cap
+    return out, spec
+
+
+def _timed(fn, reps: int):
+    """Host ms of ``reps`` calls, each ending in a device synchronise."""
+    import torch
+
+    ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return ms
+
+
+def _hold_key(name, problems, dev, reps: int = 10):
+    """One key of phase 15: captured on problem A (a miss), then a replay
+    held against ``patchmatch_pass_impl`` on the same inputs and draws (every
+    field and probe bit for bit, the same launches per kernel), problem B
+    through the same graph against its own eager run, the slot fill's
+    device ms, ``reps`` eager passes against ``reps`` replays, and the peak
+    memory of each. Returns the key's row."""
+    import numpy as np
+    import torch
+
+    from apdmvs_tpu_torch import compiled, pipeline, rng
+
+    pa, pb = problems
+    Hk, Wk = pa["prior"].depth.shape
+
+    def compiled_pass(kw, seed):
+        return pipeline.patchmatch_pass(draws=rng.TorchDraws(seed, Hk, Wk, dev), **kw)
+
+    def eager_pass(kw, seed):
+        return pipeline.patchmatch_pass_impl(draws=rng.TorchDraws(seed, Hk, Wk, dev), **kw)
+
+    key = compiled.static_key(pa["cams"], pa["prior"], pa["cfg"], pa.get("volumes"),
+                              pa.get("weak_capacity", 0), pa.get("debug", False))
+    t0 = time.perf_counter()
+    compiled_pass(pa, 1)
+    torch.cuda.synchronize()
+    miss_ms = 1e3 * (time.perf_counter() - t0)
+    entry = compiled.entries(dev)[key]
+    keys = len(compiled.entries(dev))
+    out_c, _, l_c = _run_counted(compiled_pass, pa, 2)
+    fill_ms = entry.fill_ms()
+    out_e, _, l_e = _run_counted(eager_pass, pa, 2)
+    eq_a = _fields_equal(out_c, out_e)
+    del out_c, out_e
+    out_cb = compiled_pass(pb, 3)
+    fill_b_ms = entry.fill_ms()  # B's inputs, its volume set among them, copied in
+    same_graph = len(compiled.entries(dev)) == keys
+    eq_b = _fields_equal(out_cb, eager_pass(pb, 3))
+    del out_cb
+    row = {"key": name, "nodes": entry.nodes, "warmup_ms": entry.warmup_ms,
+           "capture_ms": entry.capture_ms, "instantiate_ms": entry.instantiate_ms,
+           "miss_ms": miss_ms, "fill_ms": fill_ms, "fill_new_problem_ms": fill_b_ms,
+           "launches": {k: v for k, v in l_c.items() if v}}
+    if reps:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        eager_ms = _timed(lambda: eager_pass(pa, 4), reps)
+        row["eager_peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        replay_ms = _timed(lambda: compiled_pass(pa, 4), reps)
+        row["replay_peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        row.update(eager_ms=float(np.median(eager_ms)), replay_ms=float(np.median(replay_ms)))
+    log(f"compiled {name} ({Wk}x{Hk}): key captured in {miss_ms:.1f} ms (warm-up "
+        f"{entry.warmup_ms:.1f}, capture {entry.capture_ms:.1f}, instantiate "
+        f"{entry.instantiate_ms:.1f} ms, {entry.nodes} graph nodes); replay against "
+        f"patchmatch_pass_impl, same inputs and draws: {json.dumps(eq_a)} (tol: every field "
+        f"bit-equal); launches replay {json.dumps(row['launches'])}, eager "
+        f"{json.dumps({k: v for k, v in l_e.items() if v})} (tol: equal); a second problem "
+        f"through the same graph ({'no new key' if same_graph else 'A NEW KEY'}): "
+        f"{json.dumps(eq_b)} (tol: every field bit-equal to its eager run); slot fill "
+        f"{fill_ms:.3f} ms device, {fill_b_ms:.3f} ms with the second problem's inputs "
+        "copied in"
+        + (f"; median of {reps} eager {row['eager_ms']:.1f} ms, of {reps} replays "
+           f"{row['replay_ms']:.1f} ms; peak above the baseline eager "
+           f"{row['eager_peak_gb']:.2f} GB, replay {row['replay_peak_gb']:.2f} GB"
+           if reps else ""))
+    if not (all(eq_a.values()) and all(eq_b.values()) and same_graph and l_c == l_e):
+        raise AssertionError(f"compiled {name}: the replay differs from the body")
+    return row
+
+
+def _eager_run(runner, *args, **kwargs):
+    """``runner`` with every pass on the body (``pipeline.patchmatch_pass``
+    pointed at ``patchmatch_pass_impl`` for the run: the caller names the
+    eager body)."""
+    from apdmvs_tpu_torch import pipeline
+
+    real = pipeline.patchmatch_pass
+    pipeline.patchmatch_pass = pipeline.patchmatch_pass_impl
+    try:
+        return runner(*args, **kwargs)
+    finally:
+        pipeline.patchmatch_pass = real
+
+
+def _scene_walls(tag, folder, want_states, runs):
+    """Each of ``runs`` (label -> runner of the scene in ``folder``) from
+    fresh state, its wall per view-pass, peak memory and captures; every
+    run's state files must equal ``want_states`` (or the first run's) byte
+    for byte."""
+    import torch
+
+    from apdmvs_tpu_torch import compiled
+
+    states, parts = want_states, []
+    for label, runner in runs.items():
+        shutil.rmtree(os.path.join(folder, "APD"), ignore_errors=True)
+        caps = len(compiled.captures)
+        torch.cuda.reset_peak_memory_stats()
+        run, wall, _ = _run_counted(runner, folder)
+        got = _state_files(folder)
+        states = got if states is None else states
+        equal = got == states
+        parts.append(f"{label} {1e3 * wall / len(run.passes):.1f} ms a view-pass "
+                     f"({len(run.passes)} + fusion in {wall:.2f} s, peak "
+                     f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
+                     f"{len(compiled.captures) - caps} captures), state files byte-equal "
+                     f"{equal}")
+        if not equal:
+            raise AssertionError(f"{tag}: {label}'s state files differ")
+    log(f"compiled {tag}: " + "; ".join(parts) + " (tol: byte-equal)")
+
+
+def phase_compiled(dev, inputs, folder_2r, walls):
+    """Phase 15 (see the module docstring)."""
+    import torch
+
+    from apdmvs_tpu_torch import bench, compiled, ncc, parallel, scene
+    from apdmvs_tpu_torch.datasets import synthetic
+    from apdmvs_tpu_torch.trace_pass import profiled
+
+    t_phase = time.perf_counter()
+    states_2r = _state_files(folder_2r)  # phase 7's run: compiled, the default cache
+    per_set = ncc.image_volume_set_nbytes(V, H2, W2, K)
+    budget = scene.volume_cache_budget(dev, V, H2, W2, K)
+    log(f"compiled: default volume cache at {W2}x{H2}x{V}: budget {budget / 1e9:.2f} GB of "
+        f"{torch.cuda.get_device_properties(dev).total_memory / 1e9:.2f} GB, pins "
+        f"{parallel.pinned_count(per_set, V, budget)} of {V} sets ({per_set / 1e9:.2f} GB "
+        f"each; the scene caches all or none: {V * per_set <= budget})")
+    rows = []
+    compiled.drop()
+    for name in ("one-round FIRST_INIT", "one-round REFINE_ITER geometric", "flagship APD",
+                 "flagship APD, debug", "flagship APD, direct-warp path"):
+        rows.append(_hold_key(name, _key_problems(name, dev, inputs), dev,
+                              reps=0 if name.endswith("debug") else 10))
+        torch.cuda.empty_cache()
+    vs, prior, cap, _ = bench.flagship_state(*inputs[2:5], inputs[-1], K)
+    bench.flagship_pass(inputs[-1], vs, prior, cap, 5)
+    out_dir = os.path.join(ROOT, "_smoke_profile")
+    os.makedirs(out_dir, exist_ok=True)
+    try:
+        _, wall, led = profiled(lambda: bench.flagship_pass(inputs[-1], vs, prior, cap, 6),
+                                os.path.join(out_dir, "flagship_replay.json"), 5)
+        _log_ledger("flagship replay", wall, led, t_phase)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    del vs, prior
+    log(f"compiled: {len(compiled.entries(dev))} keys at {W}x{H}, slots "
+        f"{compiled.slot_bytes(dev) / 1e9:.2f} GB")
+    compiled.drop()
+    scene_problems, spec = _scene_problems(folder_2r, dev)
+    rows.append(_hold_key(f"two-round round-1 APD bucket {scene_problems[0]['weak_capacity']} "
+                          f"({spec.state.name})", scene_problems, dev))
+    log(f"compiled: {len(compiled.entries(dev))} keys at {W2}x{H2}, slots "
+        f"{compiled.slot_bytes(dev) / 1e9:.2f} GB")
+    del scene_problems
+    compiled.drop()
+
+    folder = os.path.join(ROOT, "_smoke_compiled")
+    shutil.rmtree(folder, ignore_errors=True)
+    try:
+        cams_s, planes_s, images, _, _, _ = inputs
+        synthetic.write_mvsnet_dataset(folder, cams_s, planes_s, depth_ranges=(2.0, 8.0),
+                                       images=images)
+        run = dict(device="cuda", verbose=False)
+        _scene_walls("one-round scene", folder, None, {
+            "compiled": lambda f: scene.run_scene(f, **run),
+            "eager": lambda f: _eager_run(scene.run_scene, f, **run)})
+        shutil.rmtree(folder, ignore_errors=True)
+        _two_round_scene(folder)
+        log(f"compiled two-round scene: compiled with the default cache (phase 7) "
+            f"{walls['two rounds']:.1f} ms a view-pass")
+        _scene_walls("two-round scene against phase 7's files", folder, states_2r, {
+            "eager, --volume-cache-gb 6": lambda f: _eager_run(
+                scene.run_scene, f, volume_cache_gb=6.0, **run)})
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    compiled.drop()
+    log(f"compiled: phase took {time.perf_counter() - t_phase:.1f} s")
+    print(json.dumps({"compiled": rows}), flush=True)
+    return rows
+
 def main() -> int:
     import torch
 
@@ -2421,6 +2767,8 @@ def main() -> int:
             + json.dumps({k: round(v, 1) for k, v in walls.items()}))
         torch.cuda.empty_cache()
         phase_debug_profile(dev, inputs, folder_2r)
+        torch.cuda.empty_cache()
+        phase_compiled(dev, inputs, folder_2r, walls)
     finally:
         shutil.rmtree(folder_2r, ignore_errors=True)
     # each kernel's launches on its slice's main path: H1, H2 and H4 (both
