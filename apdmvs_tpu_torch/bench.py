@@ -151,13 +151,14 @@ def flagship_prior(depths, normals, views: int, device):
 def flagship_pass(cams, vs, prior, cap, seed: int, debug: bool = False, eager: bool = False):
     """One flagship pass over view 0 with draws seeded by ``seed``; with
     ``debug`` also its ``pipeline.DebugProbes``. The compiled pass
-    (``pipeline.patchmatch_pass``); ``eager``, or a spaced set ``vs``, runs
-    its body (``pipeline.patchmatch_pass_impl``), as profiling and stage
-    timing need."""
+    (``pipeline.patchmatch_pass``), over a set or over row slabs on the
+    pass's device; ``eager``, or slabs on several distinct devices, runs its
+    body (``pipeline.patchmatch_pass_impl``), as profiling and stage timing
+    need and as one CUDA graph cannot hold several devices' work."""
     H_, W_ = prior.depth.shape
     sv = torch.arange(cams.K.shape[0], device=cams.device) > 0
-    run = (pipeline.patchmatch_pass_impl if eager or vs.spaced
-           else pipeline.patchmatch_pass)
+    spread = vs.spaced and len(set(vs.devices)) > 1
+    run = pipeline.patchmatch_pass_impl if eager or spread else pipeline.patchmatch_pass
     return run(cams, sv, prior, rng.TorchDraws(seed, H_, W_, cams.device), FLAGSHIP_CFG, vs,
                weak_capacity=cap, ransac_threshold=FLAGSHIP_RTH, debug=debug)
 

@@ -11,14 +11,20 @@ them.
 
 - **Static key** (:func:`static_key`): the device, (H, W, V), the path
   (the volume set's shapes, K and the padded grid, and which of D, C36 and
-  C9 it carries; or the direct-warp path and whether it reads depth maps),
+  C9 it carries; a spaced set's slab count S, slab height Hs, padded grid
+  (Hp, Wp) and each slab's shapes and volumes, the counterpart of the JAX
+  package's jitted pass over row slabs, ``apdmvs_tpu/parallel/sharded.py:
+  309-438``; or the direct-warp path and whether it reads depth maps),
   ``cfg``, ``weak_capacity`` and ``debug``: the JAX package's static
-  arguments plus the shapes it traces.
+  arguments plus the shapes it traces. A spaced set is captured when
+  every slab lies on the pass's device; slabs on several devices raise,
+  since one graph holds the work of one device.
 - **Slots.** A value that can differ between two calls of one key is
   never a captured constant: every input is a slot, a tensor at a fixed
   address that the graph reads, filled before each replay. The slots are
   the cameras, ``src_valid``, the prior, ``ransac_threshold`` (0-d), the
-  volume set's tensors (a cached set is copied in, device to device), the
+  volume set's tensors, or each slab's (a cached set or slabs built
+  outside the graph are copied in, device to device), the
   direct-warp path's images and depth maps, and the draws
   (``rng.DrawPlan``). The keys of a device share slots by (role, shape,
   dtype): replays run one at a time on one stream, and each fills all of
@@ -42,6 +48,10 @@ them.
   Python, so a replay would count nothing. The counts the body adds while
   it is captured are taken back (a capture launches nothing), kept as the
   key's launches, and added at every replay.
+- **Processes.** Each process of a ``torch.distributed`` run captures and
+  replays on its own device. The pass holds no collective (the batched
+  runner's exchanges sit between passes), and the capture runs in
+  ``"thread_local"`` mode, so another thread's CUDA call does not end it.
 - **No fallback.** A failed capture or replay raises with its key, and
   nothing runs the body eagerly in its place. The spans of
   ``pipeline._span`` do not replay, so the profiler runs and the stage
@@ -59,23 +69,42 @@ import torch
 
 from apdmvs_tpu_torch import ncc, ops, pipeline, rng
 from apdmvs_tpu_torch.geometry import Cameras
+from apdmvs_tpu_torch.parallel.spaced import SpacedVolumeSet
 
 
 def static_key(cams: Cameras, prior: pipeline.PassState, cfg, volumes, weak_capacity: int,
                debug: bool) -> tuple:
     """The pass's static key (see the module docstring). A spaced volume
-    set raises: its pass is not captured (``pipeline.patchmatch_pass_impl``
-    runs it)."""
+    set whose slabs lie on another device than the pass's raises: one CUDA
+    graph holds the work of one device (ROADMAP queue 1 item 4)."""
     H, W = prior.depth.shape
     if volumes is None:
         path = ("direct", bool(cfg.geom_consistency))
     elif volumes.spaced:
-        raise ValueError("a pass over a spaced volume set is not captured; call "
-                         "pipeline.patchmatch_pass_impl for it")
+        devices = set(volumes.devices)
+        if devices != {cams.device}:
+            raise ValueError(
+                f"a pass over slabs on {sorted(str(d) for d in devices)} from "
+                f"{cams.device} is not captured: one CUDA graph holds the work of one "
+                "device (ROADMAP queue 1 item 4); call pipeline.patchmatch_pass_impl for it")
+        path = ("spaced", volumes.S, volumes.Hs, volumes.Hp, volumes.Wp,
+                tuple(_set_path(slab) for slab in volumes.slabs))
     else:
-        path = ("volumes", tuple(volumes.E.shape), tuple(volumes.ref_pad.shape),
-                volumes.D is not None, volumes.C36 is not None, volumes.C9 is not None)
+        path = ("volumes",) + _set_path(volumes)
     return (cams.device, H, W, cams.K.shape[0], path, cfg, int(weak_capacity), bool(debug))
+
+
+def _set_path(vs: ncc.VolumeSet) -> tuple:
+    """A volume set's part of the key: the shapes of E and the padded
+    reference, and which of D, C36 and C9 it carries."""
+    return (tuple(vs.E.shape), tuple(vs.ref_pad.shape), vs.D is not None, vs.C36 is not None,
+            vs.C9 is not None)
+
+
+def _layout(key) -> Optional[tuple]:
+    """(S, Hs, Hp, Wp) of a key's spaced set, else None."""
+    path = key[4]
+    return path[1:5] if path[0] == "spaced" else None
 
 
 def _arguments(cams, src_valid, prior, volumes, ransac_threshold, images, depth_maps,
@@ -88,8 +117,11 @@ def _arguments(cams, src_valid, prior, volumes, ransac_threshold, images, depth_
     args.update({f"prior.{f}": getattr(prior, f) for f in pipeline.PassState._fields})
     args["ransac_threshold"] = ransac_threshold
     if volumes is not None:
-        args.update({f"volumes.{f}": getattr(volumes, f) for f in ncc.VolumeSet._fields
-                     if getattr(volumes, f) is not None})
+        sets = ([(f"volumes.slabs.{s}.", slab) for s, slab in enumerate(volumes.slabs)]
+                if volumes.spaced else [("volumes.", volumes)])
+        for prefix, vs in sets:
+            args.update({prefix + f: getattr(vs, f) for f in ncc.VolumeSet._fields
+                         if getattr(vs, f) is not None})
     else:
         if images is None:
             raise ValueError("a pass without volumes needs the images (the direct-warp path)")
@@ -101,12 +133,20 @@ def _arguments(cams, src_valid, prior, volumes, ransac_threshold, images, depth_
     return args
 
 
-def _body(args, draws, cfg, weak_capacity: int, debug: bool):
+def _body(args, draws, cfg, weak_capacity: int, debug: bool, layout: Optional[tuple] = None):
     """``pipeline.patchmatch_pass_impl`` on ``args`` (:func:`_arguments`'
-    roles, or their slots)."""
+    roles, or their slots); ``layout`` is (S, Hs, Hp, Wp) of a spaced set
+    (:func:`_layout` of the key)."""
+    def volume_set(prefix):
+        return ncc.VolumeSet(**{f: args.get(prefix + f) for f in ncc.VolumeSet._fields})
+
     volumes = None
-    if "volumes.E" in args:
-        volumes = ncc.VolumeSet(**{f: args.get(f"volumes.{f}") for f in ncc.VolumeSet._fields})
+    if layout is not None:
+        S, Hs, Hp, Wp = layout
+        volumes = SpacedVolumeSet(slabs=tuple(volume_set(f"volumes.slabs.{s}.")
+                                              for s in range(S)), Hs=Hs, Hp=Hp, Wp=Wp)
+    elif "volumes.E" in args:
+        volumes = volume_set("volumes.")
     return pipeline.patchmatch_pass_impl(
         Cameras(*(args[f"cams.{f}"] for f in Cameras._fields)), args["src_valid"],
         pipeline.PassState(*(args[f"prior.{f}"] for f in pipeline.PassState._fields)), draws,
@@ -215,6 +255,8 @@ _DEVICES: Dict[torch.device, _DeviceGraphs] = {}
 #: every capture of this process, in order: (key, warm-up ms, capture ms,
 #: instantiate ms, graph nodes)
 captures: list = []
+#: the replays of a hit on each device over this process
+replays: Dict[torch.device, int] = {}
 
 
 def _device_graphs(device: torch.device, scale) -> _DeviceGraphs:
@@ -272,7 +314,8 @@ def _capture(st: _DeviceGraphs, key, args, draws, cfg, weak_capacity: int, debug
     dev = key[0]
     t0 = time.perf_counter()
     plan, recorder = rng.DrawPlan.record(draws, dev)
-    eager = _body(args, recorder, cfg, weak_capacity, debug)
+    layout = _layout(key)
+    eager = _body(args, recorder, cfg, weak_capacity, debug, layout)
     torch.cuda.synchronize(dev)
     warmup_ms = 1e3 * (time.perf_counter() - t0)
     try:
@@ -295,13 +338,15 @@ def _capture(st: _DeviceGraphs, key, args, draws, cfg, weak_capacity: int, debug
         # captured on the device's one capture stream, as torch.cuda.graph
         # captures (the pool's blocks belong to the stream they were made
         # on, so one stream lets every key reuse them), without its
-        # gc.collect() and empty_cache(), which cost more than they free
+        # gc.collect() and empty_cache(), which cost more than they free.
+        # "thread_local": a CUDA call of another thread (NCCL's watchdog
+        # queries its events) does not invalidate this thread's capture
         side = st.stream
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            graph.capture_begin(pool=st.pool)
+            graph.capture_begin(pool=st.pool, capture_error_mode="thread_local")
             try:
-                outputs = _body(slots, plan.reader(), cfg, weak_capacity, debug)
+                outputs = _body(slots, plan.reader(), cfg, weak_capacity, debug, layout)
             finally:
                 graph.capture_end()
         torch.cuda.current_stream(dev).wait_stream(side)
@@ -348,4 +393,5 @@ def run(cams: Cameras, src_valid, prior: pipeline.PassState, draws, cfg, volumes
         except Exception as e:
             raise RuntimeError(f"replay of the pass failed for key {key}: {e}") from e
         _add_launches(entry.launches)
+        replays[dev] = replays.get(dev, 0) + 1
         return _clone(entry.outputs)

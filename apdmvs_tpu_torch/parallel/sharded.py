@@ -33,11 +33,13 @@ The bodies, each over the problems of one view row:
   volume, so on a space mesh each problem runs whole on its row's first
   device (the JAX package's outputs do not depend on the sharding either).
 
-On one card each problem's pass is the compiled
-``pipeline.patchmatch_pass`` (a CUDA graph per static key, replayed).
-Passes over a spaced set, whose slabs may lie on several devices, and the
-passes of a run of several processes call ``pipeline.patchmatch_pass_impl``,
-the body, whose capture is later work (ROADMAP queue 1).
+Each problem's pass is the compiled ``pipeline.patchmatch_pass`` (a CUDA
+graph per static key, replayed; ``compiled.py``): over a set or over row
+slabs that all lie on the pass's device, and in every process of a run of
+several, each on its own device (the JAX package jits the same bodies,
+``sharded.py:309-533``). Row slabs on several distinct devices run
+``pipeline.patchmatch_pass_impl``, the body: one CUDA graph holds the work
+of one device (ROADMAP queue 1 item 4).
 
 On geometric passes problem i's source depths are ``all_depths[src_index[i]]``
 from the full depth stack (the reference's all-gather over the view axis is
@@ -232,12 +234,11 @@ def build_batch_image_volumes(images: torch.Tensor, cams: Cameras, num_slices: i
     return stacked
 
 
-def _pass_fn(spaced: bool):
-    """The compiled pass, or its body over a spaced set or in a run of
-    several processes (see the module docstring)."""
-    from apdmvs_tpu_torch.parallel import multihost
-
-    if spaced or multihost.world_size() > 1:
+def _pass_fn(devices: Optional[Sequence[torch.device]] = None):
+    """The pass of a problem whose volumes lie on ``devices`` (None: one
+    device): the compiled pass, or its body when they are several distinct
+    devices (see the module docstring)."""
+    if devices is not None and len(set(devices)) > 1:
         return pipeline.patchmatch_pass_impl
     return pipeline.patchmatch_pass
 
@@ -267,7 +268,7 @@ def _volume_batched_pass(images, cams: Cameras, src_valid, prior: pipeline.PassS
     spaced = devices is not None and len(devices) > 1
     m_pre = 0 if prebuilt is None or spaced else prebuilt.E.shape[0]
     build_cv = cfg.use_APD if m_pre == 0 else prebuilt.C36 is not None
-    run_pass = _pass_fn(spaced)
+    run_pass = _pass_fn(devices)
     outs = []
     for i in range(images.shape[0]):
         cams_i = problem_row(cams, i)
@@ -295,7 +296,7 @@ def _batched_pass(images, cams: Cameras, src_valid, prior: pipeline.PassState,
                   draws: Sequence, ransac_threshold, all_depths, src_index, cfg: PassConfig,
                   weak_capacity: int, use_geom: bool) -> pipeline.PassOutputs:
     """The direct-warp path over one view row's problems (no volume)."""
-    run_pass = _pass_fn(False)
+    run_pass = _pass_fn()
     outs = [run_pass(
         problem_row(cams, i), src_valid[i], problem_row(prior, i), draws[i], cfg,
         weak_capacity=weak_capacity, ransac_threshold=float(ransac_threshold[i]),

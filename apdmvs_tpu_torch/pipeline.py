@@ -119,9 +119,12 @@ def patchmatch_pass(
     ``weak_capacity``, ``debug``, the path and the volumes present) as a
     CUDA graph and replayed from static input slots (``compiled.py``); a
     capture or replay that fails raises with its key, and nothing runs the
-    body eagerly in its place. A spaced volume set is refused on a card:
-    call :func:`patchmatch_pass_impl` for it. On the CPU this is the body,
-    since CUDA graphs are a CUDA feature."""
+    body eagerly in its place. A spaced volume set is captured when its
+    slabs all lie on the pass's device; slabs on several devices are
+    refused on a card (one graph holds one device's work): call
+    :func:`patchmatch_pass_impl` for them. Each process of a
+    ``torch.distributed`` run captures on its own device. On the CPU this
+    is the body, since CUDA graphs are a CUDA feature."""
     if cams.device.type != "cuda":
         return patchmatch_pass_impl(cams, src_valid, prior, draws, cfg, volumes, weak_capacity,
                                     ransac_threshold, images, depth_maps, debug)

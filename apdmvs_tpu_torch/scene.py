@@ -118,8 +118,12 @@ def volume_cache_budget(device, num_views: int, height: int, width: int,
     (:data:`PASS_BYTES_PER_PIXEL_VIEW`); and for the compiled pass
     (``compiled.py``) its volume slots (a set and D), its graph pool (a
     working set again) and its draw slots (:data:`DRAW_BYTES_PER_PIXEL`).
-    On the CPU the memory is the host's physical memory, and the compiled
-    pass's share is not held back (the CPU runs the body). Never below 0."""
+    The processes of a run share the host's cards evenly (each takes one,
+    ``parallel.default_devices``), so ceil(processes / cards) of them share
+    this card: each takes that share of its memory and holds its own pass,
+    graphs and slots beside its sets. On the CPU the memory is the host's
+    physical memory, and the compiled pass's share is not held back (the
+    CPU runs the body). Never below 0."""
     dev = torch.device(device)
     set_bytes = ncc.image_volume_set_nbytes(num_views, height, width, num_slices,
                                             weak_cost_volumes)
@@ -128,7 +132,11 @@ def volume_cache_budget(device, num_views: int, height: int, width: int,
     work = PASS_BYTES_PER_PIXEL_VIEW * num_views * height * width
     reserve = set_bytes + 2 * d_bytes + work
     if dev.type == "cuda":
-        total = torch.cuda.get_device_properties(dev).total_memory
+        from apdmvs_tpu_torch.parallel import multihost
+
+        world = multihost.world_size()
+        sharing = 1 if world == 1 else -(-world // torch.cuda.device_count())
+        total = torch.cuda.get_device_properties(dev).total_memory / sharing
         reserve += set_bytes + d_bytes + work + DRAW_BYTES_PER_PIXEL * height * width
     else:
         total = os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
@@ -696,7 +704,7 @@ def run_scene_batched(
 
     A schedule whose first pass is not FIRST_INIT raises (the reference
     package re-initialises there silently)."""
-    from apdmvs_tpu_torch import parallel
+    from apdmvs_tpu_torch import compiled, parallel
     from apdmvs_tpu_torch.parallel import multihost
 
     device = resolve_device(device)
@@ -741,6 +749,7 @@ def run_scene_batched(
                           for n in local], np.int64)
     state: Optional[pipeline.PassState] = None
     vol_cache: Dict[Tuple[int, int], Optional[list]] = {}
+    captures0, replays0 = len(compiled.captures), sum(compiled.replays.values())
     passes = []
     for spec in build_schedule(round_num):
         t0 = time.perf_counter()
@@ -817,9 +826,14 @@ def run_scene_batched(
             print(f"round {spec.round_index} pass {spec.pass_index} ({eff.state.name}, scale "
                   f"1/{spec.scale_size}, {N} views batched over {mesh_note}): "
                   f"{seconds * 1000:.0f} ms, weak {float(np.mean(weak_pcts)):.1f}%")
-    if report and multihost.world_size() > 1:
-        print(f"process {multihost.rank()} of {multihost.world_size()}: persisted views "
-              + " ".join(str(problems[n].ref_image_id) for n in local), flush=True)
+    who = (f"process {multihost.rank()} of {multihost.world_size()}: "
+           if multihost.world_size() > 1 else "")
+    if report and who:
+        print(who + "persisted views " + " ".join(str(problems[n].ref_image_id) for n in local),
+              flush=True)
+    if report and home.type == "cuda":
+        print(f"{who}compiled pass: {len(compiled.captures) - captures0} keys captured, "
+              f"{sum(compiled.replays.values()) - replays0} replays", flush=True)
     # every process's state files are on disk before fusion reads them
     multihost.barrier()
     ply = os.path.join(dense_folder, "APD", "APD.ply")

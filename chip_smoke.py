@@ -135,16 +135,17 @@ and no ``ok`` line is printed:
    box. The walls per view-pass of phases 3, 7, 11 and 12 in one line.
 13. sharded: the two-round scene of phase 7 through
    ``scene.run_scene_batched`` on a view 2 x space 2 mesh, all four shards
-   on cuda:0, with the launch counters zeroed (H1, H2, H4, H5, H6 must
+   on cuda:0, every pass compiled (keys captured and replays printed, both
+   > 0), with the launch counters zeroed (H1, H2, H4, H5, H6 must
    launch, H3, H7, H8 and the one-view wrappers must not; phase 7's
-   checks), its state files held to phase 11's batched run of the same
-   scene (share of equal entries per field, at least the JAX package's
-   decision-level bounds: pixel_state 0.999, depth within 2e-3 0.995,
-   selected 0.995; whether all were equal is printed); the flagship APD
-   pass on a spaced set of S = 4 slabs against the unsharded pass with the
-   same draws, every field equal; the one-round scene in two processes on
+   checks), its wall per view-pass beside the body's and its peak, its
+   state files byte-equal to phase 11's batched run of the same scene
+   (the share of equal entries per field printed and held to the JAX
+   package's decision-level bounds: pixel_state 0.999, depth within 2e-3
+   0.995, selected 0.995); the one-round scene in two processes on
    cuda:0 (``python -m apdmvs_tpu_torch --batched --view-shards 2
-   --num-processes 2 ... --dist-backend gloo --fusion eth-device``), its
+   --num-processes 2 ... --dist-backend gloo --fusion eth-device``), each
+   process reporting the keys it captured and its replays (both > 0), its
    state files equal to phase 11's one-process batched run byte for byte,
    each process persisting only its own views and process 0 alone fusing
    on the card; and
@@ -174,20 +175,22 @@ and no ``ok`` line is printed:
    the body, whose stage spans a replay would not record.
 15. compiled: ``pipeline.patchmatch_pass``, the body captured once per
    static key as a CUDA graph and replayed (``compiled.py``), the only pass
-   of every phase above but the traced, stage-timed and sharded ones. The
+   of every phase above but the traced and stage-timed ones. The
    default volume cache at 1280x960x5 (its budget and the sets it pins).
    For each key (the one-round scene's FIRST_INIT and geometric
    REFINE_ITER, the flagship APD pass, the same with ``debug=True``, the
-   flagship on the direct-warp path, all at 640x480 from views 0 and 1 of
-   the ring scene; and the two-round scene's last round-1 pass of views 0
-   and 1 at 1280x960 from phase 7's state files, in the larger of their
-   worklist buckets): its capture (warm-up, capture and instantiate ms,
-   graph nodes), a replay held against ``patchmatch_pass_impl`` on the
-   same inputs and draws (every output field and probe bit for bit, the
-   same launches per kernel), the second problem through the same graph
-   against its own eager run (bit for bit, no new key), the slot fill's
-   device ms, the median of 10 eager passes against 10 replays and the
-   peak memory of each. Then ``timeline``'s gap ledger of one traced
+   flagship on the direct-warp path, the flagship on S = 2 and S = 4 row
+   slabs of cuda:0, all at 640x480 from views 0 and 1 of the ring scene;
+   and the two-round scene's last round-1 pass of views 0 and 1 at
+   1280x960 from phase 7's state files, in the larger of their worklist
+   buckets, unsharded and on S = 2 slabs): its capture (warm-up, capture
+   and instantiate ms, graph nodes), a replay held against
+   ``patchmatch_pass_impl`` on the same inputs and draws (every output
+   field and probe bit for bit, the same launches per kernel) and, over
+   slabs, against the unsharded key's replay, the second problem through
+   the same graph against its own eager run (bit for bit, no new key), the
+   slot fill's device ms, the median of 10 eager passes against 10 replays
+   and the peak memory of each. Then ``timeline``'s gap ledger of one traced
    flagship replay (device events only: no span replays), the keys and
    slot bytes at each scale, and the one-round scene run compiled and
    eagerly (walls per view-pass, peaks, captures; state files byte-equal)
@@ -197,10 +200,10 @@ and no ``ok`` line is printed:
 
 Then it prints the ``kernels`` JSON line (launches: H1, H2 and H4 from
 phase 3, H5-H6 from phase 7, H3, H7 and H8 from phase 5, and each
-kernel's ``sharded`` launches from phase 13's 2 x 2 run; a replay counts
-the launches its key's capture recorded, and a capture's warm-up pass
-counts its own; times in device time where the script takes it; phases
-11, 12, 14 and 15 launch no other kernel),
+kernel's ``sharded`` launches from phase 13's 2 x 2 run, compiled; a
+replay counts the launches its key's capture recorded, and a capture's
+warm-up pass counts its own; times in device time where the script takes
+it; phases 11, 12, 14 and 15 launch no other kernel),
 the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the rest
 of the repository beside it, it fails before printing any result.
@@ -1865,7 +1868,7 @@ def _batched_run(folder, **kwargs):
     with contextlib.redirect_stdout(report):
         run = scene.run_scene_batched(folder, device="cuda", **kwargs)
     for ln in report.getvalue().splitlines():
-        if ln.startswith("volume cache"):
+        if ln.startswith(("volume cache", "compiled pass:")):
             log(f"batched runner: {ln}")
     return run
 
@@ -2093,27 +2096,37 @@ def phase_sharded(dev, inputs, states):
     import numpy as np
     import torch
 
-    from apdmvs_tpu_torch import bench, fusion_device, ncc, parallel, scene
+    from apdmvs_tpu_torch import compiled, fusion_device, parallel, scene
     from apdmvs_tpu_torch.datasets import synthetic
 
-    # 1. the two-round scene on a view 2 x space 2 mesh of cuda:0
+    # 1. the two-round scene on a view 2 x space 2 mesh of cuda:0, compiled
     folder = os.path.join(ROOT, "_smoke_sharded")
     try:
         _, images2, depths2, planes2 = _two_round_scene(folder)
+        compiled.drop()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        caps, reps = len(compiled.captures), compiled.replays.get(dev, 0)
         run, wall, launches = _run_counted(_batched_run, folder, n_view_shards=2,
                                            n_space_shards=2, devices=[dev] * 4)
         _log_batched_passes("sharded 2x2", run)
         ms = 1e3 * wall / len(run.passes)
-        log(f"sharded 2x2: {len(run.passes)} view-passes + fusion in {wall:.2f} s, {ms:.1f} ms "
-            f"a view-pass, peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
-            "GB; launches " + json.dumps(launches))
+        caps, reps = len(compiled.captures) - caps, compiled.replays.get(dev, 0) - reps
+        log(f"sharded 2x2 (compiled: {caps} keys captured, {reps} replays): "
+            f"{len(run.passes)} view-passes + fusion in {wall:.2f} s, {ms:.1f} ms a view-pass "
+            f"(the eager body's, PERF.md: 602.0-659.9), peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+            + json.dumps(launches))
         stray = [n for n in NOT_ON_SHARDED_PATH if launches[n] != 0]
         if stray:
             raise AssertionError(f"sharded 2x2: launched {stray}")
+        if caps == 0 or reps == 0:
+            raise AssertionError("sharded 2x2: the passes did not replay graphs")
         _two_round_checks("sharded 2x2", folder, images2, depths2, planes2, run, launches)
-        _agreement("sharded 2x2 against phase 11", _state_files(folder), states["two rounds"])
+        if not _agreement("sharded 2x2 against phase 11", _state_files(folder),
+                          states["two rounds"]):
+            raise AssertionError("sharded 2x2: state files differ from phase 11's one shard")
+        compiled.drop()
 
         problems = scene.generate_sample_list(folder)
         views, src_ids = scene._load_fusion_views(folder, problems)
@@ -2137,36 +2150,7 @@ def phase_sharded(dev, inputs, states):
         shutil.rmtree(folder, ignore_errors=True)
     torch.cuda.empty_cache()
 
-    # 2. the flagship APD pass on S = 4 slabs against the unsharded pass
-    _, _, images, depths, normals, cams = inputs
-    vs, prior, cap, _ = bench.flagship_state(images, depths, normals, cams, K)
-    ref = bench.flagship_pass(cams, vs, prior, cap, 1)
-    del vs
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    sp = ncc.build_volume_set_spaced(torch.as_tensor(images, device=dev), cams, bench.DMIN,
-                                     bench.DMAX, [dev] * 4, num_slices=K,
-                                     depth_maps=torch.as_tensor(depths, device=dev))
-    torch.cuda.synchronize()
-    build_ms = 1e3 * (time.perf_counter() - t0)
-    t0 = time.perf_counter()
-    out = bench.flagship_pass(cams, sp, prior, cap, 1)
-    torch.cuda.synchronize()
-    pass_ms = 1e3 * (time.perf_counter() - t0)
-    equal = {f: bool(torch.equal(a, b)) for f, a, b in zip(ref._fields, ref, out)}
-    d_share = float(torch.isclose(out.depth, ref.depth, rtol=2e-3, atol=2e-3).float().mean())
-    ps_share = float((out.pixel_state == ref.pixel_state).float().mean())
-    log(f"sharded flagship: S = 4 slabs of {sp.Hs} rows built in {build_ms:.1f} ms, pass "
-        f"{pass_ms:.1f} ms; equal to the unsharded pass per field {json.dumps(equal)} "
-        f"(tol: every field equal); shares of equal entries: depth within 2e-3 {d_share:.6f}, "
-        f"pixel_state {ps_share:.6f}")
-    if not all(equal.values()):
-        raise AssertionError(f"sharded flagship: fields differ from the unsharded pass: "
-                             f"{[f for f, e in equal.items() if not e]}")
-    del sp, out, ref
-    torch.cuda.empty_cache()
-
-    # 3. the one-round scene in two processes sharing cuda:0
+    # 2. the one-round scene in two processes sharing cuda:0, each compiled
     cams_s, planes_s, images, depths, _, _ = inputs
     folder = os.path.join(ROOT, "_smoke_two_processes")
     shutil.rmtree(folder, ignore_errors=True)
@@ -2184,6 +2168,13 @@ def phase_sharded(dev, inputs, states):
                 raise AssertionError(f"two processes: process {i} reported nothing:\n"
                                      + out[-3000:])
             persisted.append([int(v) for v in line.split("views")[1].split()])
+            line = next((ln for ln in out.splitlines()
+                         if ln.startswith(f"process {i} of 2: compiled pass:")), "")
+            got = re.search(r"(\d+) keys captured, (\d+) replays", line)
+            log(f"two processes: process {i}: {line}")
+            if got is None or min(int(got.group(1)), int(got.group(2))) == 0:
+                raise AssertionError(f"two processes: process {i} replayed no graph:\n"
+                                     + out[-3000:])
             fused = "Fused point cloud" in out
             if fused != (i == 0):
                 raise AssertionError(f"two processes: process {i} fused: {fused}")
@@ -2311,8 +2302,9 @@ def phase_debug_profile(dev, inputs, folder_2r):
         sp = ncc.build_volume_set_spaced(torch.as_tensor(images, device=dev), cams, bench.DMIN,
                                          bench.DMAX, [dev] * 4, num_slices=K,
                                          depth_maps=torch.as_tensor(depths, device=dev))
-        bench.flagship_pass(cams, sp, prior, cap, 1)
-        _, wall, led = profiled(lambda: bench.flagship_pass(cams, sp, prior, cap, 2),
+        bench.flagship_pass(cams, sp, prior, cap, 1, eager=True)
+        _, wall, led = profiled(lambda: bench.flagship_pass(cams, sp, prior, cap, 2,
+                                                            eager=True),
                                 os.path.join(out_dir, "flagship_4_slabs.json"), 5)
         _log_ledger("flagship pass on 4 row slabs", wall, led, t_phase)
         del sp
@@ -2441,11 +2433,12 @@ def _reordered(inputs, ref: int):
             geometry.Cameras(*(f[order] for f in cams)))
 
 
-def _key_problems(name, dev, inputs):
+def _key_problems(name, dev, inputs, slabs: int = 0):
     """Two problems (keyword arguments of ``pipeline.patchmatch_pass``
     without draws) that share the static key ``name``: views 0 and 1 of the
     640x480 ring scene as the reference, the second with its own ransac
-    threshold where the pass reads one."""
+    threshold where the pass reads one; the flagship's volumes as ``slabs``
+    row slabs of ``dev`` when ``slabs`` > 0."""
     import torch
 
     from apdmvs_tpu_torch import bench, ncc, scene
@@ -2479,6 +2472,10 @@ def _key_problems(name, dev, inputs):
                       debug=name == "flagship APD, debug")
             if name == "flagship APD, direct-warp path":
                 kw.update(images=imgs, depth_maps=dms)
+            elif slabs:
+                kw["volumes"] = ncc.build_volume_set_spaced(
+                    imgs, cams, bench.DMIN, bench.DMAX, [dev] * slabs, num_slices=K,
+                    depth_maps=dms)
             else:
                 vs = ncc.build_image_volume_set(imgs, cams, bench.DMIN, bench.DMAX, K)
                 kw["volumes"] = ncc.add_depth_volumes(vs, dms, cams, bench.DMIN, bench.DMAX)
@@ -2486,14 +2483,16 @@ def _key_problems(name, dev, inputs):
     return out
 
 
-def _scene_problems(folder, dev):
+def _scene_problems(folder, dev, slabs: int = 0):
     """Views 0 and 1 of the two-round scene's last round-1 pass (REFINE_ITER,
     geometric, APD at 1280x960), as ``scene.process_problem`` would pass
     them from the state files in ``folder``, both with the larger of their
-    worklist buckets (one key)."""
+    worklist buckets (one key); their volumes as ``slabs`` row slabs of
+    ``dev`` when ``slabs`` > 0 (built from the images and depth maps the
+    pass reads, over the problem's depth range)."""
     import inspect
 
-    from apdmvs_tpu_torch import pipeline, scene
+    from apdmvs_tpu_torch import ncc, pipeline, scene
     from apdmvs_tpu_torch.params import build_schedule
 
     class _Stop(Exception):
@@ -2514,15 +2513,20 @@ def _scene_problems(folder, dev):
         for i in (0, 1):
             try:
                 scene.process_problem(cache, problems[i], spec, (W2, H2), 0, dev,
-                                      num_views_pad=V)
+                                      num_views_pad=V, num_slices=K, use_volumes=not slabs)
             except _Stop:
                 pass
     finally:
         pipeline.patchmatch_pass = real
     cap = max(kw["weak_capacity"] for kw in out)
-    for kw in out:
+    for i, kw in enumerate(out):
         del kw["draws"]
         kw["weak_capacity"] = cap
+        if slabs:
+            inp = scene._problem_inputs(cache, problems[i], W2, H2, (W2, H2), V)
+            kw["volumes"] = ncc.build_volume_set_spaced(
+                kw["images"], kw["cams"], inp.dmin, inp.dmax, [dev] * slabs, num_slices=K,
+                depth_maps=kw["depth_maps"])
     return out, spec
 
 
@@ -2540,13 +2544,15 @@ def _timed(fn, reps: int):
     return ms
 
 
-def _hold_key(name, problems, dev, reps: int = 10):
+def _hold_key(name, problems, dev, reps: int = 10, unsharded=None):
     """One key of phase 15: captured on problem A (a miss), then a replay
     held against ``patchmatch_pass_impl`` on the same inputs and draws (every
-    field and probe bit for bit, the same launches per kernel), problem B
-    through the same graph against its own eager run, the slot fill's
-    device ms, ``reps`` eager passes against ``reps`` replays, and the peak
-    memory of each. Returns the key's row."""
+    field and probe bit for bit, the same launches per kernel) and, for a
+    key over row slabs, against ``unsharded`` (the unsharded key's replay of
+    A with the same draws), problem B through the same graph against its
+    own eager run, the slot fill's device ms, ``reps`` eager passes against
+    ``reps`` replays, and the peak memory of each. Returns the key's row
+    and that replay of A."""
     import numpy as np
     import torch
 
@@ -2573,7 +2579,8 @@ def _hold_key(name, problems, dev, reps: int = 10):
     fill_ms = entry.fill_ms()
     out_e, _, l_e = _run_counted(eager_pass, pa, 2)
     eq_a = _fields_equal(out_c, out_e)
-    del out_c, out_e
+    eq_u = None if unsharded is None else _fields_equal(out_c, unsharded)
+    del out_e
     out_cb = compiled_pass(pb, 3)
     fill_b_ms = entry.fill_ms()  # B's inputs, its volume set among them, copied in
     same_graph = len(compiled.entries(dev)) == keys
@@ -2597,8 +2604,11 @@ def _hold_key(name, problems, dev, reps: int = 10):
         f"{entry.instantiate_ms:.1f} ms, {entry.nodes} graph nodes); replay against "
         f"patchmatch_pass_impl, same inputs and draws: {json.dumps(eq_a)} (tol: every field "
         f"bit-equal); launches replay {json.dumps(row['launches'])}, eager "
-        f"{json.dumps({k: v for k, v in l_e.items() if v})} (tol: equal); a second problem "
-        f"through the same graph ({'no new key' if same_graph else 'A NEW KEY'}): "
+        f"{json.dumps({k: v for k, v in l_e.items() if v})} (tol: equal); "
+        + ("" if eq_u is None else f"against the unsharded key's replay {json.dumps(eq_u)} "
+           "(tol: every field bit-equal); ")
+        + "a second problem through the same graph "
+        f"({'no new key' if same_graph else 'A NEW KEY'}): "
         f"{json.dumps(eq_b)} (tol: every field bit-equal to its eager run); slot fill "
         f"{fill_ms:.3f} ms device, {fill_b_ms:.3f} ms with the second problem's inputs "
         "copied in"
@@ -2606,9 +2616,10 @@ def _hold_key(name, problems, dev, reps: int = 10):
            f"{row['replay_ms']:.1f} ms; peak above the baseline eager "
            f"{row['eager_peak_gb']:.2f} GB, replay {row['replay_peak_gb']:.2f} GB"
            if reps else ""))
-    if not (all(eq_a.values()) and all(eq_b.values()) and same_graph and l_c == l_e):
+    if not (all(eq_a.values()) and all(eq_b.values()) and same_graph and l_c == l_e
+            and (eq_u is None or all(eq_u.values()))):
         raise AssertionError(f"compiled {name}: the replay differs from the body")
-    return row
+    return row, out_c
 
 
 def _eager_run(runner, *args, **kwargs):
@@ -2673,8 +2684,19 @@ def phase_compiled(dev, inputs, folder_2r, walls):
     compiled.drop()
     for name in ("one-round FIRST_INIT", "one-round REFINE_ITER geometric", "flagship APD",
                  "flagship APD, debug", "flagship APD, direct-warp path"):
-        rows.append(_hold_key(name, _key_problems(name, dev, inputs), dev,
-                              reps=0 if name.endswith("debug") else 10))
+        row, replay = _hold_key(name, _key_problems(name, dev, inputs), dev,
+                                reps=0 if name.endswith("debug") else 10)
+        rows.append(row)
+        if name == "flagship APD":
+            flagship_replay = replay
+        del replay
+        torch.cuda.empty_cache()
+    # the flagship pass over row slabs of cuda:0, each replay also held
+    # against the unsharded key's
+    for S in (2, 4):
+        rows.append(_hold_key(f"flagship APD, {S} slabs",
+                              _key_problems("flagship APD", dev, inputs, slabs=S), dev,
+                              unsharded=flagship_replay)[0])
         torch.cuda.empty_cache()
     vs, prior, cap, _ = bench.flagship_state(*inputs[2:5], inputs[-1], K)
     bench.flagship_pass(inputs[-1], vs, prior, cap, 5)
@@ -2690,12 +2712,21 @@ def phase_compiled(dev, inputs, folder_2r, walls):
     log(f"compiled: {len(compiled.entries(dev))} keys at {W}x{H}, slots "
         f"{compiled.slot_bytes(dev) / 1e9:.2f} GB")
     compiled.drop()
+    del flagship_replay
     scene_problems, spec = _scene_problems(folder_2r, dev)
-    rows.append(_hold_key(f"two-round round-1 APD bucket {scene_problems[0]['weak_capacity']} "
-                          f"({spec.state.name})", scene_problems, dev))
+    name = f"two-round round-1 APD bucket {scene_problems[0]['weak_capacity']}"
+    row, replay = _hold_key(f"{name} ({spec.state.name})", scene_problems, dev)
+    rows.append(row)
     log(f"compiled: {len(compiled.entries(dev))} keys at {W2}x{H2}, slots "
         f"{compiled.slot_bytes(dev) / 1e9:.2f} GB")
     del scene_problems
+    compiled.drop()
+    scene_problems, spec = _scene_problems(folder_2r, dev, slabs=2)
+    rows.append(_hold_key(f"{name}, 2 slabs ({spec.state.name})", scene_problems, dev,
+                          unsharded=replay)[0])
+    log(f"compiled: {len(compiled.entries(dev))} keys at {W2}x{H2} on 2 slabs, slots "
+        f"{compiled.slot_bytes(dev) / 1e9:.2f} GB")
+    del scene_problems, replay
     compiled.drop()
 
     folder = os.path.join(ROOT, "_smoke_compiled")

@@ -10,9 +10,11 @@ A CUDA graph needs a card, so the tests hold what the capture rests on:
   ``JaxDraws``, then filled from a fresh source of the same seed) equals
   the pass fed directly, bit for bit, with APD and geometric consistency;
 - the static key separates every static argument and maps two problems
-  that differ only in cameras, prior and ``ransac_threshold`` to one key,
-  and the body run on filled slots equals it run on the originals, bit for
-  bit, on the volume and the direct-warp paths;
+  that differ only in cameras, prior and ``ransac_threshold`` to one key
+  (a spaced set on the pass's device has a key of its own; slabs on
+  another device raise), and the body run on filled slots equals it run
+  on the originals, bit for bit, on the volume and the direct-warp paths
+  (spaced sets: ``tests/test_torch_compiled_spaced.py``);
 - under a ``TorchDispatchMode`` the body dispatches none of the operators
   a capture refuses: ``nonzero``, ``_local_scalar_dense`` (a host read),
   ``masked_select``, ``unique*``, a boolean index (``index`` /
@@ -150,8 +152,12 @@ def test_static_key_separates_static_arguments(small):
     assert len({key, *others}) == len(others) + 1
     spaced = ncc.build_volume_set_spaced(small["imgs"], sc["tcams"], DMIN, DMAX, ["cpu"] * 2,
                                          num_slices=K)
+    assert compiled.static_key(sc["tcams"], prior, CFG, spaced, 1024, False) not in {
+        key, *others}
+    spread = spaced._replace(slabs=(spaced.slabs[0], type(spaced.slabs[1])(
+        *(None if f is None else f.to("meta") for f in spaced.slabs[1]))))
     with pytest.raises(ValueError, match="patchmatch_pass_impl"):
-        compiled.static_key(sc["tcams"], prior, CFG, spaced, 1024, False)
+        compiled.static_key(sc["tcams"], prior, CFG, spread, 1024, False)
 
 
 @pytest.mark.parametrize("path", ["volumes", "direct"])
@@ -226,8 +232,9 @@ class _Refused(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-@pytest.mark.parametrize("path", ["volumes", "direct"])
-def test_body_dispatches_no_refused_operator(small, path, monkeypatch):
+def refused_operators(monkeypatch, args, H, W, cap, layout=None) -> set:
+    """The refused operators the body dispatches on ``args`` (outside the
+    kernel wrappers), after a recording pass."""
     mode = _Refused()
     from apdmvs_tpu_torch.ops import cols, ncc_volume
 
@@ -241,18 +248,23 @@ def test_body_dispatches_no_refused_operator(small, path, monkeypatch):
                 mode.in_kernel -= 1
 
         monkeypatch.setattr(mod, name, kernel)
-    sc = small["sc"]
-    H, W = sc["H"], sc["W"]
-    args = compiled._arguments(sc["tcams"], small["sv"], small["prior"],
-                               small["vs"] if path == "volumes" else None,
-                               torch.tensor(0.00875), small["imgs"], small["dms"], CFG)
     # debug=True runs every stage of debug=False and returns the probes too;
     # the recording pass also makes the device constants, as a warm-up does
     plan, recorder = rng.DrawPlan.record(rng.TorchDraws(3, H, W, "cpu"), "cpu")
-    compiled._body(args, recorder, CFG, small["cap"], True)
+    compiled._body(args, recorder, CFG, cap, True, layout)
     with mode:
-        compiled._body(args, plan.reader(), CFG, small["cap"], True)
-    assert mode.seen == set(), mode.seen
+        compiled._body(args, plan.reader(), CFG, cap, True, layout)
+    return mode.seen
+
+
+@pytest.mark.parametrize("path", ["volumes", "direct"])
+def test_body_dispatches_no_refused_operator(small, path, monkeypatch):
+    sc = small["sc"]
+    args = compiled._arguments(sc["tcams"], small["sv"], small["prior"],
+                               small["vs"] if path == "volumes" else None,
+                               torch.tensor(0.00875), small["imgs"], small["dms"], CFG)
+    seen = refused_operators(monkeypatch, args, sc["H"], sc["W"], small["cap"])
+    assert seen == set(), seen
 
 
 def _refuse(*args, **kwargs):
