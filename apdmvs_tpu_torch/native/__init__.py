@@ -30,7 +30,7 @@ def _build() -> bool:
     tmp = f"{_SO}.{os.getpid()}.tmp"
     cmd = [
         "g++", "-O3", "-march=native", "-ffast-math", "-shared", "-fPIC",
-        "-std=c++17", _SRC, "-o", tmp,
+        "-pthread", "-std=c++17", _SRC, "-o", tmp,
     ]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
@@ -62,7 +62,7 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.fuse_eth_native.argtypes = [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, dp, dp, dp, fp, fp,
             up, up, up, ip, ip, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-            fp, up, ctypes.c_longlong,
+            fp, up, ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
         ]
         lib.fuse_tat_native.restype = ctypes.c_longlong
         lib.fuse_tat_native.argtypes = [
@@ -84,9 +84,10 @@ def _pack_views(views) -> Tuple:
     Ks = np.ascontiguousarray(np.stack([v.K for v in views]).astype(np.float64))
     Rs = np.ascontiguousarray(np.stack([v.R for v in views]).astype(np.float64))
     ts = np.ascontiguousarray(np.stack([v.t for v in views]).astype(np.float64))
-    depths = np.ascontiguousarray(np.stack([v.depth for v in views]).astype(np.float32))
-    normals = np.ascontiguousarray(np.stack([v.normal for v in views]).astype(np.float32))
-    bgrs = np.ascontiguousarray(np.stack([v.image_bgr for v in views]).astype(np.uint8))
+    depths = np.ascontiguousarray(np.stack([v.depth for v in views]).astype(np.float32, copy=False))
+    normals = np.ascontiguousarray(
+        np.stack([v.normal for v in views]).astype(np.float32, copy=False))
+    bgrs = np.ascontiguousarray(np.stack([v.image_bgr for v in views]).astype(np.uint8, copy=False))
     if any(v.block is not None for v in views):
         blocks = np.ascontiguousarray(
             np.stack(
@@ -118,21 +119,37 @@ def _ptr(a, ctype):
     return a.ctypes.data_as(ctypes.POINTER(ctype))
 
 
-def fuse_eth(views, src_ids, weak_factor=0.45, strong_factor=0.3):
+def fuse_eth(views, src_ids, weak_factor=0.45, strong_factor=0.3, threads=None):
     """Native ETH fusion with the reference's exact sequential greedy
     semantics (APD.cpp:826-977). Returns (coords [N,3] f32, colors [N,3] u8)
-    or None if the native library is unavailable."""
+    or None if the native library is unavailable.
+
+    The sources' tests run on ``threads`` host threads (None: this
+    process's share of its CPU affinity, ``multihost.host_threads``); the
+    points and their order do not depend on it. Counters: ``fusion.threads``
+    (the threads used), ``fusion.candidates`` (consistent sources found)
+    and ``fusion.candidates_consumed`` (those of pixels that could still
+    pass, dropped because an earlier point had consumed the source
+    pixel)."""
+    from apdmvs_tpu_torch import telemetry
+    from apdmvs_tpu_torch.parallel import multihost
+
     lib = _load()
     if lib is None:
         return None
     n, H, W, Ks, Rs, ts, depths, normals, bgrs, blocks = _pack_views(views)
     weaks = None
     if all(v.weak is not None for v in views):
-        weaks = np.ascontiguousarray(np.stack([v.weak for v in views]).astype(np.uint8))
+        weaks = np.ascontiguousarray(np.stack([v.weak for v in views]).astype(np.uint8, copy=False))
     src_arr, counts, max_src = _pack_srcs(src_ids)
     cap = int(n) * H * W
     out_xyz = np.empty((cap, 3), np.float32)
     out_bgr = np.empty((cap, 3), np.uint8)
+    stats = np.zeros(3, np.int64)
+    if threads is None:
+        threads = multihost.host_threads()
+    if threads < 1:
+        raise ValueError(f"threads must be at least 1, got {threads}")
     cnt = lib.fuse_eth_native(
         n, H, W,
         _ptr(Ks, ctypes.c_double), _ptr(Rs, ctypes.c_double), _ptr(ts, ctypes.c_double),
@@ -142,7 +159,11 @@ def fuse_eth(views, src_ids, weak_factor=0.45, strong_factor=0.3):
         _ptr(src_arr, ctypes.c_int), _ptr(counts, ctypes.c_int), max_src,
         float(weak_factor), float(strong_factor),
         _ptr(out_xyz, ctypes.c_float), _ptr(out_bgr, ctypes.c_ubyte), cap,
+        int(threads), _ptr(stats, ctypes.c_longlong),
     )
+    telemetry.count("fusion.threads", int(stats[0]))
+    telemetry.count("fusion.candidates", int(stats[1]))
+    telemetry.count("fusion.candidates_consumed", int(stats[2]))
     cnt = min(int(cnt), cap)
     return out_xyz[:cnt].copy(), out_bgr[:cnt].copy()
 

@@ -16,7 +16,9 @@ runner makes between passes, each an explicit call below:
   capacity, which sizes the RANSAC draws, and the geometry gate) or the
   device fusion's first-raster-pixel rule, so every process takes the
   same branch;
-- :func:`barrier` before fusion.
+- :func:`barrier` before fusion;
+- :func:`host_threads`: the host threads a process takes for its own
+  work (the ETH fusion core).
 
 In one process every helper is the identity. The backend is ``nccl`` on
 cards and ``gloo`` on the CPU; ``gloo`` on cards (several processes
@@ -47,6 +49,12 @@ def rank() -> int:
     import torch.distributed as dist
 
     return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def host_threads() -> int:
+    """This process's share of the host threads it may run on: its CPU
+    affinity over the processes of the group, at least 1."""
+    return max(1, len(os.sched_getaffinity(0)) // world_size())
 
 
 def _env_int(name: str) -> Optional[int]:

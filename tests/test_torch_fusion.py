@@ -9,11 +9,18 @@
   decisions agree and point counts within 0.5 %; against the host numpy
   backend the JAX package's own bounds (tests/test_fusion_device.py), and
   its greedy-dedup property.
+- ``native.fuse_eth`` (evaluated on several threads, committed in raster
+  order) at 1, 2, 3 and 8 threads against the JAX package's sequential
+  native core, byte for byte: a collision-heavy scene, ROI blocks with WEAK
+  pixels, a view among its own sources, fewer rows than threads.
 - ``scene.run_fusion`` with each of the four variants on one folder of
   persisted ground-truth outputs, against the JAX ``scene.run_fusion``:
   ``eth`` and both ``tat`` variants write equal clouds, ``eth-device``
-  within the bounds above; the CLI's ``--fusion`` reaches ``run_scene``.
+  within the bounds above, ``eth`` counting its threads and candidates;
+  the CLI's ``--fusion`` reaches ``run_scene``.
 """
+
+import dataclasses
 
 import os
 import subprocess
@@ -23,9 +30,10 @@ import numpy as np
 import pytest
 import torch
 
-from apdmvs_tpu import fusion as jfus, fusion_device as jfd, scene as jscene
+from apdmvs_tpu import fusion as jfus, fusion_device as jfd, native as jnative, scene as jscene
 from apdmvs_tpu_torch import __main__ as cli
 from apdmvs_tpu_torch import fusion as tfus, fusion_device as tfd, native, scene as tscene
+from apdmvs_tpu_torch import telemetry
 from apdmvs_tpu_torch.datasets import synthetic as tsyn
 from apdmvs_tpu_torch.io import formats
 from apdmvs_tpu_torch.params import PixelState
@@ -87,6 +95,78 @@ def test_fuse_tat_native_matches_numpy(oracle, advanced):
     jn, jcoln = jfus.fuse_tat(jv, src, advanced=advanced, backend="native")
     np.testing.assert_array_equal(jn, cn)
     np.testing.assert_array_equal(jcoln, coln)
+
+
+def _eth_scene(name):
+    """(views as arrays, src_ids) of one threaded-core case: ``collision``
+    is tests/test_native.py::test_collision_heavy_backend_parity's scene
+    (two views pushed back, many pixels claim one far source pixel);
+    ``blocked_weak`` ROI blocks and WEAK boxes over normals tilted by ~6
+    degrees, so terms fall near both factors; ``self_source`` the same maps
+    with view 0 among its own sources; ``few_rows`` an image of 6 rows."""
+    width, height = (64, 6) if name == "few_rows" else (160, 120)
+    cams, planes = tsyn.make_ring_scene(num_views=4, width=width, height=height)
+    if name == "collision":
+        pushed = []
+        for i, c in enumerate(cams):
+            if i >= 2:  # push back along the view direction
+                center = -c.R.T @ c.t + c.R.T @ np.array([0.0, 0.0, -6.0])
+                c = dataclasses.replace(c, t=(-c.R @ center).astype(c.t.dtype))
+            pushed.append(c)
+        cams = pushed
+    images, depths, normals = tsyn.render_scene(cams, planes)
+    rng = np.random.default_rng(7)
+    views = []
+    for i, cam in enumerate(cams):
+        normal, block = normals[i], None
+        weak = np.full(depths[i].shape, PixelState.STRONG, np.uint8)
+        if name in ("blocked_weak", "self_source"):
+            tilted = normal + rng.normal(0.0, 0.07, normal.shape).astype(np.float32)
+            normal = (tilted / np.linalg.norm(tilted, axis=-1, keepdims=True)).astype(np.float32)
+            weak[20:70, 30:110] = PixelState.WEAK
+        if name == "blocked_weak":
+            block = np.full(depths[i].shape, 255, np.uint8)
+            block[:, (i * 37) % width:(i * 37) % width + 50] = 0
+        bgr = np.repeat(np.clip(images[i], 0, 255).astype(np.uint8)[..., None], 3, -1)
+        views.append(dict(K=cam.K.astype(np.float64), R=cam.R.astype(np.float64),
+                          t=cam.t.astype(np.float64), image_bgr=bgr, depth=depths[i],
+                          normal=normal, weak=weak, block=block))
+    n = len(views)
+    src_ids = [[j for j in range(n) if j != i] for i in range(n)]
+    if name == "self_source":
+        src_ids[0] = [1, 0, 2, 3]
+    return views, src_ids
+
+
+@pytest.fixture(scope="module")
+def eth_scenes():
+    """Each case's views and the JAX package's sequential native cloud."""
+    cases = {}
+    for name in ("collision", "blocked_weak", "self_source", "few_rows"):
+        views, src_ids = _eth_scene(name)
+        expect = jnative.fuse_eth([jfus.FusionView(**v) for v in views], src_ids)
+        assert expect is not None, "the JAX package's native core did not build"
+        cases[name] = (views, src_ids, expect)
+    return cases
+
+
+@pytest.mark.parametrize("threads", [1, 2, 3, 8])
+@pytest.mark.parametrize("scene", ["collision", "blocked_weak", "self_source", "few_rows"])
+def test_native_eth_threads_byte_equal_to_sequential_core(eth_scenes, scene, threads):
+    views, src_ids, (jc, jcol) = eth_scenes[scene]
+    before = dict(telemetry._counters)
+    got = native.fuse_eth([tfus.FusionView(**v) for v in views], src_ids, threads=threads)
+    assert got is not None, "native library unavailable"
+    tc, tcol = got
+    assert len(jc) > 100 and tc.shape == jc.shape and tcol.shape == jcol.shape
+    assert np.array_equal(tc, jc) and np.array_equal(tcol, jcol)
+    counted = {k: telemetry._counters.get(k, 0) - before.get(k, 0)
+               for k in ("fusion.threads", "fusion.candidates", "fusion.candidates_consumed")}
+    rows_blocks = -(-views[0]["depth"].shape[0] // 4)
+    assert counted["fusion.threads"] == min(threads, rows_blocks)
+    assert counted["fusion.candidates"] >= counted["fusion.candidates_consumed"] >= 0
+    if scene == "collision":  # the commit's consumed-mask path decides pixels
+        assert counted["fusion.candidates_consumed"] > 0
 
 
 def test_fuse_eth_device_matches_jax_decisions(oracle):
@@ -187,6 +267,18 @@ def test_run_fusion_variant_matches_jax(gt_outputs, variant):
     else:
         np.testing.assert_array_equal(jc, tc)
         np.testing.assert_array_equal(jcol, tcol)
+
+
+def test_run_fusion_eth_counts_threads_and_candidates(gt_outputs):
+    folder, _ = gt_outputs
+    start = telemetry.scene_start("cpu")
+    tscene.run_fusion(folder, tscene.generate_sample_list(folder), variant="eth",
+                      out_name="counted.ply", device="cpu")
+    counters = telemetry.scene_end(start)["counters"]
+    # this process's CPU affinity, at most one thread a block of 4 rows
+    assert counters["fusion.threads"] == min(len(os.sched_getaffinity(0)), 96 // 4) >= 1
+    assert counters["fusion.candidates"] >= counters.get("fusion.candidates_consumed", 0) >= 0
+    assert counters["fusion.candidates"] > 0
 
 
 def test_run_fusion_refuses_an_unknown_variant(gt_outputs):

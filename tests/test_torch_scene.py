@@ -64,9 +64,14 @@ def test_scene_run_carries_its_telemetry(fused_run):
                      "depth_volumes.build": 9, "state.copy": 12, "state.write": 12,
                      "fusion.load": 1, "fusion.core": 1, "fusion.write": 1}
     set_bytes = ncc.image_volume_set_nbytes(3, 72, 96, 64, weak_cost_volumes=False)
-    assert tel["counters"] == {"view_passes": 12, "geom_view_passes": 9, "cache.hits": 9,
-                               "cache.builds": 3, "cache.pinned_builds": 3,
-                               "cache.pinned_bytes": 3 * set_bytes}
+    counters = dict(tel["counters"])
+    # the ETH fusion's threads (this process's CPU affinity, at most one a
+    # block of 4 rows) and candidates
+    assert counters.pop("fusion.threads") == min(len(os.sched_getaffinity(0)), 72 // 4)
+    assert counters.pop("fusion.candidates") >= counters.pop("fusion.candidates_consumed", 0)
+    assert counters == {"view_passes": 12, "geom_view_passes": 9, "cache.hits": 9,
+                        "cache.builds": 3, "cache.pinned_builds": 3,
+                        "cache.pinned_bytes": 3 * set_bytes}
     # every pass's stages timed on the host clock (the CPU runs the body)
     assert tel["stage_passes"] == 12 and all(ms > 0 for ms in tel["stage_ms"].values())
     assert set(tel["stage_ms"]) == {"init", "recost", "strong_black", "strong_red", "readout",
