@@ -31,13 +31,26 @@ them.
   its slots before it launches. A slot is not copied again from the tensor
   it was last filled from while that tensor is unchanged (the same object
   at the same version).
-- **Memory.** Every graph of a device captures into one pool
-  (``torch.cuda.graph_pool_handle()``), so the keys' working sets share
-  memory. When a call's (H, W) differs from the last call's on its device,
-  the device's graphs and slots are dropped, as the scene's volume cache
-  is at a new scale (``scene.SceneCache``).
-- **A miss** runs the body once on the caller's inputs and draws
-  (recording the draw plan, whose answers fill the draw slots), captures
+- **Memory.** The graphs of a device at one scale (H, W) capture into
+  one pool (a ``torch.cuda.MemPool``), so the keys' working sets share
+  memory, and a miss's warm-up runs in that pool too, on the capture
+  stream: the warm-up's working set reuses the blocks the earlier keys'
+  graphs use between their replays, and the capture then reuses the
+  warm-up's, so the card holds the largest working set of a scale's keys
+  once, not the pool beside a warm-up. Each scale has a pool of its own:
+  with one pool for 800x600 and 1600x1200, the 1600x1200 REFINE_INIT
+  replay of a second DTU scene read what the 800x600 replays had left in
+  the pool and differed from the first scene's. A
+  device keeps the graphs and slots of the last :data:`MAX_SCALES` scales
+  it ran; a call at another scale drops them all first. A scene of two
+  rounds (800x600 then 1600x1200) so captures its keys in its first scene
+  and nothing after.
+- **Lent slots** (:func:`lender`): an input that the caller builds afresh
+  for every call (an image-volume set the scene's cache does not pin,
+  the depth volumes) is built into the slot itself, so the card holds it
+  once, and the fill copies nothing (a slot is not copied into itself).
+- **A miss** runs the body once on the caller's inputs and draws, in the
+  pool (recording the draw plan, whose answers fill the draw slots), captures
   the body on the slots on the device's capture stream, instantiates the
   graph and replays it.
   The replay must equal that warm-up bit for bit in every output, or the
@@ -223,20 +236,23 @@ class Entry:
 
 
 class _DeviceGraphs:
-    """A device's graphs by key, their shared pool and slots, and the
-    scale (H, W) they were captured at."""
+    """A device's graphs by key, their pools (one a scale) and slots."""
 
     def __init__(self):
-        self.pool = self.stream = None  # the pool and capture stream, at the first capture
-        self.scale = None
+        self.pools: Dict[tuple, object] = {}  # scale (H, W) -> its graphs' MemPool
+        self.stream = None  # the capture stream, at the first miss
+        self.scales: list = []  # the scales (H, W) called or lent at, in order
         self.entries: Dict[tuple, Entry] = {}
         self.slots: Dict[tuple, torch.Tensor] = {}
         self.sources: Dict[int, tuple] = {}  # id(slot) -> (weakref to its source, version)
 
     def slot(self, role, like: torch.Tensor, device) -> torch.Tensor:
-        k = (role, tuple(like.shape), like.dtype)
+        return self.lend(role, like.shape, like.dtype, device)
+
+    def lend(self, role, shape, dtype, device) -> torch.Tensor:
+        k = (role, tuple(shape), dtype)
         if k not in self.slots:
-            self.slots[k] = torch.empty(like.shape, dtype=like.dtype, device=device)
+            self.slots[k] = torch.empty(tuple(shape), dtype=dtype, device=device)
         return self.slots[k]
 
     def input_slots(self, args, device) -> Dict[str, torch.Tensor]:
@@ -254,6 +270,8 @@ class _DeviceGraphs:
             slot.fill_(float(src))
             self.sources.pop(id(slot), None)
             return
+        if src is slot:  # built in the slot (a lent slot)
+            return
         last = self.sources.get(id(slot))
         if last is not None and last[0]() is src and last[1] == src._version:
             return
@@ -269,16 +287,48 @@ captures: list = []
 replays: Dict[torch.device, int] = {}
 
 
+#: the scales (H, W) whose graphs and slots a device keeps at once
+MAX_SCALES = 2
+
+
 def _device_graphs(device: torch.device, scale) -> _DeviceGraphs:
+    """The graphs of ``device`` for a call at ``scale`` (H, W); a scale
+    beyond the :data:`MAX_SCALES` the device holds drops them all first."""
     st = _DEVICES.get(device)
+    if st is not None and scale not in st.scales and len(st.scales) >= MAX_SCALES:
+        st = None  # no reference left while drop() returns the memory
+        drop(device)
     if st is None:
         st = _DEVICES[device] = _DeviceGraphs()
-    if st.scale != scale:
-        if st.entries or st.slots:
-            drop(device)
-            st = _DEVICES[device] = _DeviceGraphs()
-        st.scale = scale
+    if scale not in st.scales:
+        st.scales.append(scale)
     return st
+
+
+def _card(device) -> Optional[torch.device]:
+    """``device`` with its index on a card; None off a card."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    return dev if dev.index is not None else torch.device("cuda", torch.cuda.current_device())
+
+
+def lender(device, scale):
+    """For a pass at ``scale`` (H, W) on ``device``: ``make(role, shape,
+    dtype)``, the device's slot of that input role (``volumes.E``,
+    ``volumes.C36``, ``volumes.C9``, ``volumes.D``), shape and dtype, made
+    where it has none, for a caller that builds the input afresh for every
+    pass to build it in (the module docstring). None off a card, where
+    the caller allocates."""
+    dev = _card(device)
+    if dev is None:
+        return None
+
+    def make(role, shape, dtype):
+        with torch.cuda.device(dev):
+            return _device_graphs(dev, tuple(scale)).lend(role, shape, dtype, dev)
+
+    return make
 
 
 def drop(device=None) -> None:
@@ -293,6 +343,19 @@ def entries(device) -> Dict[tuple, Entry]:
     """The keys of ``device`` and their graphs."""
     st = _DEVICES.get(torch.device(device))
     return {} if st is None else dict(st.entries)
+
+
+def pool_bytes(device) -> int:
+    """Device bytes the segments of ``device``'s graph pools hold (the
+    caching allocator's snapshot); 0 off a card or before its first
+    capture."""
+    dev = _card(device)
+    st = None if dev is None else _DEVICES.get(dev)
+    if st is None or not st.pools:
+        return 0
+    pools = {tuple(p.id) for p in st.pools.values()}
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if seg["device"] == dev.index and tuple(seg.get("segment_pool_id", ())) in pools)
 
 
 def slot_bytes(device) -> int:
@@ -313,10 +376,22 @@ def _capture(st: _DeviceGraphs, key, args, draws, cfg, weak_capacity: int, debug
     """The miss of the module docstring; returns the new entry and the
     replay's outputs."""
     dev = key[0]
+    pool = st.pools.get(key[1:3])
+    if pool is None:
+        pool = st.pools[key[1:3]] = torch.cuda.MemPool()
+    if st.stream is None:
+        st.stream = torch.cuda.Stream(dev)
+    # the warm-up allocates in the scale's pool on the capture stream (the
+    # pool's blocks belong to the stream they were made on), beside nothing
+    # the earlier keys hold between their replays
+    side = st.stream
     t0 = time.perf_counter()
     plan, recorder = rng.DrawPlan.record(draws, dev)
     layout = _layout(key)
-    eager = _body(args, recorder, cfg, weak_capacity, debug, layout)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side), torch.cuda.use_mem_pool(pool, dev):
+        eager = _body(args, recorder, cfg, weak_capacity, debug, layout)
+    torch.cuda.current_stream(dev).wait_stream(side)
     torch.cuda.synchronize(dev)
     warmup_ms = 1e3 * (time.perf_counter() - t0)
     try:
@@ -330,22 +405,18 @@ def _capture(st: _DeviceGraphs, key, args, draws, cfg, weak_capacity: int, debug
                 s.copy_(a)
             plan.slots[i] = shared if isinstance(answer, tuple) else shared[0]
         slots = st.input_slots(args, dev)
-        if st.pool is None:
-            st.pool = torch.cuda.graph_pool_handle()
-            st.stream = torch.cuda.Stream(dev)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         before = telemetry.kernel_counts()
         t1 = time.perf_counter()
         # captured on the device's one capture stream, as torch.cuda.graph
-        # captures (the pool's blocks belong to the stream they were made
-        # on, so one stream lets every key reuse them), without its
-        # gc.collect() and empty_cache(), which cost more than they free.
-        # "thread_local": a CUDA call of another thread (NCCL's watchdog
-        # queries its events) does not invalidate this thread's capture
-        side = st.stream
+        # captures (one stream lets every key and warm-up reuse the pool's
+        # blocks), without its gc.collect() and empty_cache(), which cost
+        # more than they free. "thread_local": a CUDA call of another
+        # thread (NCCL's watchdog queries its events) does not invalidate
+        # this thread's capture
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            graph.capture_begin(pool=st.pool, capture_error_mode="thread_local")
+            graph.capture_begin(pool=pool.id, capture_error_mode="thread_local")
             try:
                 with telemetry.stage_clock(dev) as stages:
                     outputs = _body(slots, plan.reader(), cfg, weak_capacity, debug, layout)

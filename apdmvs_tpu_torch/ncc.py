@@ -164,15 +164,18 @@ def _edge_pad(img: torch.Tensor, top: int, bottom: int, left: int, right: int) -
 
 
 def build_image_volume_set(images: torch.Tensor, cams: Cameras, depth_min, depth_max,
-                           num_slices: int = 160, weak_cost_volumes: bool = True) -> VolumeSet:
+                           num_slices: int = 160, weak_cost_volumes: bool = True,
+                           out=None) -> VolumeSet:
     """Image volumes E (one H1 launch per source view), consts, the padded
     reference image and, with ``weak_cost_volumes``, the cost volumes C36
     and C9 of the weak machinery: the one slab of :func:`_volume_slabs` on
     the device of ``images``. They depend only on (images, cameras, depth
     grid), so the scene runner builds them once per (problem, scale) and
-    reuses them across the round's passes."""
+    reuses them across the round's passes. ``out(role, shape, dtype)``,
+    where given, makes the tensors E, C36 and C9 are built in (roles
+    ``volumes.E`` ...; ``compiled.lender``), a view at a time."""
     return _volume_slabs(images, cams, depth_min, depth_max, [images.device], num_slices,
-                         None, weak_cost_volumes)[0][0]
+                         None, weak_cost_volumes, out)[0][0]
 
 
 def padded_grid(height: int, width: int) -> Tuple[int, int]:
@@ -195,9 +198,10 @@ def image_volume_set_nbytes(num_views: int, height: int, width: int, num_slices:
 
 
 def add_depth_volumes(vs: VolumeSet, depth_maps: torch.Tensor, cams: Cameras,
-                      depth_min, depth_max) -> VolumeSet:
+                      depth_min, depth_max, out=None) -> VolumeSet:
     """Attach the per-pass source-view depth volumes (H1 in trunc mode) and
-    reprojection constants for geometric consistency. Spans
+    reprojection constants for geometric consistency; ``out`` as
+    :func:`build_image_volume_set`'s (role ``volumes.D``). Spans
     ``depth_volumes``, around ``depth_volumes.consts`` (the constants) and
     ``depth_volumes.build`` (the H1 builds and their stack)."""
     V, H, W = depth_maps.shape
@@ -210,18 +214,35 @@ def add_depth_volumes(vs: VolumeSet, depth_maps: torch.Tensor, cams: Cameras,
             geom_consts = _geom_consts(cams, u_min, du, W, H)
         with telemetry.span("depth_volumes.build"):
             D = _depth_volumes(depth_maps, wc.M, wc.b, cams.K[0], u_min, du, vs.num_slices,
-                               Hp, Wp)
+                               Hp, Wp, out=out)
         return vs._replace(D=D, geom_consts=geom_consts)
 
 
+def _views_into(build, n: int, role: str, dtype, out=None) -> torch.Tensor:
+    """``build(i)`` for i < n stacked [n, ...], each copied into the stack
+    as it is built, so that a build holds the stack and one view's volume,
+    not the stack twice; the stack from ``out(role, shape, dtype)`` where
+    given, else new."""
+    stack = None
+    for i in range(n):
+        one = build(i)
+        if stack is None:
+            shape = (n,) + tuple(one.shape)
+            stack = one.new_empty(shape) if out is None else out(role, shape, dtype)
+        stack[i] = one
+        del one
+    return stack
+
+
 def _depth_volumes(depth_maps, M, b, K_ref, u_min, du, K: int, Hp: int, Wp: int,
-                   row0: int = 0) -> torch.Tensor:
+                   row0: int = 0, out=None) -> torch.Tensor:
     """[V-1, K, Hp, Wp] f32 depth volumes of the source views (H1, trunc
-    mode; warp constants M, b [V, ...]) over the rows [row0, row0 + Hp)."""
-    return torch.stack([vol.build_volume(
-        depth_maps[v], M[v], b[v], K_ref, Hp, Wp, u_min, du, K,
-        pad_y=0, pad_x=0, dtype=torch.float32, trunc=True, row0=row0,
-    ) for v in range(1, depth_maps.shape[0])])
+    mode; warp constants M, b [V, ...]) over the rows [row0, row0 + Hp)
+    (:func:`_views_into`)."""
+    return _views_into(lambda i: vol.build_volume(
+        depth_maps[i + 1], M[i + 1], b[i + 1], K_ref, Hp, Wp, u_min, du, K, pad_y=0, pad_x=0,
+        dtype=torch.float32, trunc=True, row0=row0,
+    ), depth_maps.shape[0] - 1, "volumes.D", torch.float32, out)
 
 
 def _geom_consts(cams: Cameras, u_min, du, W: int, H: int) -> torch.Tensor:
@@ -277,7 +298,7 @@ def build_volume_set_spaced(images: torch.Tensor, cams: Cameras, depth_min, dept
 
 
 def _volume_slabs(images, cams: Cameras, depth_min, depth_max, devices, num_slices: int,
-                  depth_maps, weak_cost_volumes: bool):
+                  depth_maps, weak_cost_volumes: bool, out=None):
     """One VolumeSet per row slab, slab s on ``devices[s]``; returns
     (slabs, Hs, Hp, Wp). Slab s owns the interior rows [s*Hs, (s+1)*Hs) of
     the padded grid, Hp = ceil(H, NCC_TILE_H * S), Wp = ceil(W, TILE_W),
@@ -289,9 +310,12 @@ def _volume_slabs(images, cams: Cameras, depth_min, depth_max, devices, num_slic
     equal the rows of one slab over the whole grid bit for bit; C36 and C9
     rows within the window radius of an inner slab edge carry the slab's
     own clamped sums, and no lookup reads them (``weak.build_weak_cols``
-    takes each row from the slab that owns it)."""
+    takes each row from the slab that owns it). ``out`` (one slab):
+    :func:`build_image_volume_set`'s."""
     V, H, W = images.shape
     S = len(devices)
+    if out is not None and S != 1:
+        raise ValueError("volumes are built in lent tensors on one device only")
     PAD_Y, PAD_X = ncc_volume.PAD_Y, ncc_volume.PAD_X
     Hp = _ceil_to(H, ncc_volume.NCC_TILE_H * S)
     Hs = Hp // S
@@ -306,15 +330,17 @@ def _volume_slabs(images, cams: Cameras, depth_min, depth_max, devices, num_slic
     for s, dev in enumerate(devices):
         row0 = s * Hs
         M, b, K_ref = wc.M.to(dev), wc.b.to(dev), cams.K[0].to(dev)
-        E = torch.stack([vol.build_volume(
-            images[v].to(dev), M[v], b[v], K_ref, Hs, Wp, u_min, du, num_slices,
+        E = _views_into(lambda i: vol.build_volume(
+            images[i + 1].to(dev), M[i + 1], b[i + 1], K_ref, Hs, Wp, u_min, du, num_slices,
             pad_y=PAD_Y, pad_x=PAD_X, dtype=torch.bfloat16, row0=row0,
-        ) for v in range(1, V)])
+        ), V - 1, "volumes.E", torch.bfloat16, out)
         ref_slab = ref_pad[row0:row0 + Hs + 2 * PAD_Y].to(dev, copy=True)
         C36 = C9 = None
         if weak_cost_volumes:
-            C36 = torch.stack([cost_volume.build_cost_volume(e, ref_slab, 5, 2) for e in E])
-            C9 = torch.stack([cost_volume.build_cost_volume(e, ref_slab, 5, 5) for e in E])
+            C36 = _views_into(lambda i: cost_volume.build_cost_volume(E[i], ref_slab, 5, 2),
+                              V - 1, "volumes.C36", torch.bfloat16, out)
+            C9 = _views_into(lambda i: cost_volume.build_cost_volume(E[i], ref_slab, 5, 5),
+                             V - 1, "volumes.C9", torch.bfloat16, out)
         slab = VolumeSet(E=E, consts=_with_row0(consts, row0, dev), ref_pad=ref_slab,
                          C36=C36, C9=C9)
         if depth_maps is not None:

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from apdmvs_tpu_torch import fusion as fusion_mod
-from apdmvs_tpu_torch import debug, geometry, ncc, pipeline, rng, telemetry
+from apdmvs_tpu_torch import compiled, debug, geometry, ncc, pipeline, rng, telemetry
 from apdmvs_tpu_torch.io import formats, images as imio, render
 from apdmvs_tpu_torch.params import (
     MAX_IMAGES, PassConfig, PassSpec, PixelState, Problem, RunState, build_schedule,
@@ -195,11 +195,16 @@ class SceneCache:
         self.volume_stats[name] += n
         telemetry.count("cache." + name, n)
 
-    def image_volumes(self, image_id: int, width: int, builder,
-                      budget: Optional[float] = None) -> ncc.VolumeSet:
-        """The cached set of (image_id, width), or ``builder()``'s, pinned
-        if it fits: within ``volume_cache_bytes`` when given, else within
-        ``budget`` (the scale's default, :func:`volume_cache_budget`)."""
+    def image_volumes(self, image_id: int, width: int, builder, nbytes: int,
+                      budget: Optional[float] = None, lend=None) -> ncc.VolumeSet:
+        """The cached set of (image_id, width), or ``builder(out)``'s, a set
+        of ``nbytes`` (:func:`ncc.image_volume_set_nbytes`), pinned if it
+        fits: within ``volume_cache_bytes`` when given, else within
+        ``budget`` (the scale's default, :func:`volume_cache_budget`), every
+        set of the scale (all or none) and this one beside those pinned. A
+        set that is not pinned is built with ``out=lend`` (the compiled
+        pass's slots, ``compiled.lender``; None: new tensors), a pinned one
+        with ``out=None``."""
         with telemetry.span("cache.volume_set"):
             if self._volumes_width != width:
                 self._volumes.clear()
@@ -210,15 +215,14 @@ class SceneCache:
             if vs is not None:
                 self._volume_count("hits")
                 return vs
-            vs = builder()
-            self._volume_count("builds")
             cap = self.volume_cache_bytes if self.volume_cache_bytes is not None else budget
             if cap is None:
                 raise ValueError("no volume cache budget: give volume_cache_bytes or budget")
-            nbytes = sum(t.numel() * t.element_size() for t in vs
-                         if isinstance(t, torch.Tensor))
             fits_scale = self.expected_sets is None or self.expected_sets * nbytes <= cap
-            if fits_scale and self.volume_stats["pinned_bytes"] + nbytes <= cap:
+            pin = fits_scale and self.volume_stats["pinned_bytes"] + nbytes <= cap
+            vs = builder(None if pin else lend)
+            self._volume_count("builds")
+            if pin:
                 self._volumes[key] = vs
                 self._volume_count("pinned_builds")
                 self._volume_count("pinned_bytes", nbytes)
@@ -247,11 +251,11 @@ class SceneCache:
         return self._scaled[key]
 
 
-def _load_prior(cache: SceneCache, problem: Problem, num_views: int, W: int, H: int,
-                device, missing_ok: bool = False) -> Optional[pipeline.PassState]:
-    """The previous pass's outputs for this view (memory first, then disk),
-    rescaled to this pass's size (APD.cpp:552-581). Missing state under a
-    non-FIRST pass raises unless ``missing_ok`` (APD.cpp:514-518)."""
+def _prior_outputs(cache: SceneCache, problem: Problem,
+                   missing_ok: bool = False) -> Optional[Dict[str, np.ndarray]]:
+    """The previous pass's host arrays for this view, memory first, then
+    disk (kept in ``cache.outputs``). Missing state raises unless
+    ``missing_ok`` (APD.cpp:514-518), which gives None."""
     out = cache.outputs.get(problem.ref_image_id)
     if out is None:
         depth_path = os.path.join(problem.result_folder, "depths.dmb")
@@ -271,6 +275,16 @@ def _load_prior(cache: SceneCache, problem: Problem, num_views: int, W: int, H: 
             "selected": formats.read_bin_mat(os.path.join(rf, "selected_views.bin")),
         }
         cache.outputs[problem.ref_image_id] = out
+    return out
+
+
+def _load_prior(cache: SceneCache, problem: Problem, num_views: int, W: int, H: int,
+                device, missing_ok: bool = False) -> Optional[pipeline.PassState]:
+    """The previous pass's outputs for this view (:func:`_prior_outputs`),
+    rescaled to this pass's size (APD.cpp:552-581) on ``device``."""
+    out = _prior_outputs(cache, problem, missing_ok)
+    if out is None:
+        return None
     sel = pipeline.bitmask_to_selected(imio.resize_nearest(out["selected"], W, H), num_views)
 
     def dev(a, dtype):
@@ -282,6 +296,24 @@ def _load_prior(cache: SceneCache, problem: Problem, num_views: int, W: int, H: 
         pixel_state=dev(imio.resize_nearest(out["weak"], W, H), torch.uint8),
         selected=dev(sel, torch.bool),
     )
+
+
+def pass_weak_capacity(cache: SceneCache, problems: Sequence[Problem], W: int, H: int,
+                       missing_ok: bool = False) -> int:
+    """The weak worklist's capacity of an APD pass at (W, H), one for every
+    view of the pass: :func:`_bucket_capacity` of the largest WEAK count
+    among the views' priors at this size, as :func:`run_scene_batched`
+    sizes it. The capacity shapes the RANSAC draws and is part of the
+    compiled pass's key, so one capacity a pass captures one weak key, and
+    every view of a pass does the same work. Span ``scene.weak_capacity``."""
+    with telemetry.span("scene.weak_capacity"):
+        most = 0
+        for problem in problems:
+            out = _prior_outputs(cache, problem, missing_ok)
+            if out is not None:
+                weak = imio.resize_nearest(out["weak"], W, H)
+                most = max(most, int(np.count_nonzero(weak == PixelState.WEAK)))
+        return _bucket_capacity(most, H * W)
 
 
 def _load_src_depths(cache: SceneCache, problem: Problem, view_ids: Sequence[int],
@@ -402,6 +434,7 @@ def process_problem(
     use_volumes: bool = True,
     debug_dumps: bool = False,
     eager: bool = False,
+    weak_capacity: Optional[int] = None,
 ) -> ProblemStats:
     """One (view, pass): the reference's ProcessProblem (main.cpp:91-138).
     Loads inputs, runs the pass on ``device``, clamps out-of-range depths
@@ -413,7 +446,15 @@ def process_problem(
     clamping (``apdmvs_tpu/scene.py:440-446``). The pass is the compiled
     ``pipeline.patchmatch_pass``; ``eager`` runs its body,
     ``pipeline.patchmatch_pass_impl``, whose stage spans a profiler
-    records (a replay records none)."""
+    records (a replay records none). An APD pass runs its weak machinery
+    at ``weak_capacity``, the pass's (:func:`pass_weak_capacity`; a view
+    without WEAK pixels runs it on an all-padding worklist), or, where
+    None, at the bucket of this view's own WEAK count; it counts
+    ``apd_view_passes``, ``weak.in`` and ``weak.capacity``. Unless
+    ``eager``, on a card, the inputs it builds afresh for the pass are
+    built in the compiled pass's slots (``compiled.lender``), so a wrapper
+    of ``pipeline.patchmatch_pass`` that keeps them past the call sees
+    them overwritten by the next call; ``eager`` builds them anew."""
     t0 = time.perf_counter()
     device = torch.device(device)
     # the cached image volumes serve all of this (problem, scale)'s passes, so
@@ -437,21 +478,33 @@ def process_problem(
         prior = _empty_prior(V, H, W, device)
         spec = dataclasses.replace(spec, state=RunState.FIRST_INIT, use_APD=False,
                                    geom_consistency=False)
-    weak_in = weak_capacity = 0
+    weak_in = 0
     if spec.use_APD:
         weak_in = int(torch.sum(prior.pixel_state == PixelState.WEAK))
-        weak_capacity = _bucket_capacity(weak_in, H * W)
+        if weak_capacity is None:
+            weak_capacity = _bucket_capacity(weak_in, H * W)
         if weak_capacity == 0:
             spec = dataclasses.replace(spec, use_APD=False)
+        else:
+            telemetry.count("apd_view_passes")
+            telemetry.count("weak.in", weak_in)
+            telemetry.count("weak.capacity", weak_capacity)
+    if not spec.use_APD:
+        weak_capacity = 0
 
     volumes = depth_maps = None
+    # inputs built afresh for this pass (a volume set the cache does not
+    # pin, the depth volumes) are built in the compiled pass's slots, which
+    # the next call at this scale overwrites (None off a card, or eager)
+    lend = None if eager else compiled.lender(device, (H, W))
     if use_volumes:
         volumes = cache.image_volumes(
             problem.ref_image_id, W,
-            builder=lambda: ncc.build_image_volume_set(
-                images, cams, dmin, dmax, num_slices=num_slices,
-                weak_cost_volumes=round_use_apd),
-            budget=volume_cache_budget(device, V, H, W, num_slices, round_use_apd),
+            lambda out: ncc.build_image_volume_set(images, cams, dmin, dmax,
+                                                   num_slices=num_slices,
+                                                   weak_cost_volumes=round_use_apd, out=out),
+            ncc.image_volume_set_nbytes(V, H, W, num_slices, round_use_apd),
+            budget=volume_cache_budget(device, V, H, W, num_slices, round_use_apd), lend=lend,
         )
     if spec.geom_consistency:
         with telemetry.span("scene.src_depths"):
@@ -462,7 +515,7 @@ def process_problem(
         if depth_maps is None:
             spec = dataclasses.replace(spec, geom_consistency=False)
         elif use_volumes:
-            volumes = ncc.add_depth_volumes(volumes, depth_maps, cams, dmin, dmax)
+            volumes = ncc.add_depth_volumes(volumes, depth_maps, cams, dmin, dmax, out=lend)
 
     telemetry.count("view_passes")
     if spec.geom_consistency:
@@ -612,8 +665,12 @@ def run_scene(
     export included) on an NVIDIA H100. If the profiler cannot start, the
     run fails.
 
-    The returned :class:`SceneRun` carries the scene's telemetry, also
-    kept in ``telemetry.recent_scenes``."""
+    Every view of an APD pass runs one weak worklist capacity, the pass's
+    (:func:`pass_weak_capacity`, the batched runner's rule). The returned
+    :class:`SceneRun` carries the scene's telemetry, also kept in
+    ``telemetry.recent_scenes``; its counter ``compiled.pool_bytes`` is
+    what the compiled pass's graph pool holds at the scene's end
+    (``compiled.pool_bytes``; 0 on the CPU)."""
     device = resolve_device(device)
     if fusion_variant not in FUSION_VARIANTS:
         raise ValueError(f"unknown fusion variant {fusion_variant!r}")
@@ -638,12 +695,17 @@ def run_scene(
     profiler = _profiler(device) if profile_dir else contextlib.nullcontext()
     with profiler:
         for spec in build_schedule(round_num):
+            weak_capacity = None
+            if spec.use_APD:
+                weak_capacity = pass_weak_capacity(
+                    cache, problems, *scaled_size(*full_size, spec.scale_size),
+                    missing_ok=allow_missing_prior)
             for problem in problems:
                 stats = process_problem(
                     cache, problem, spec, full_size, seed, device, num_views_pad=V_pad,
                     show_medium_result=show_medium_result, num_slices=num_slices,
                     allow_missing_prior=allow_missing_prior, use_volumes=use_volumes,
-                    debug_dumps=debug_dumps,
+                    debug_dumps=debug_dumps, weak_capacity=weak_capacity,
                 )
                 passes.append((spec, problem, stats))
                 if verbose:
@@ -652,6 +714,7 @@ def run_scene(
                           f"scale 1/{spec.scale_size}): {stats.seconds * 1000:.0f} ms, "
                           f"weak {stats.weak_pct:.1f}%, weak in {stats.weak_in}")
         ply = run_fusion(dense_folder, problems, variant=fusion_variant, device=device)
+    telemetry.count("compiled.pool_bytes", compiled.pool_bytes(device))
     tel = telemetry.scene_end(start, profiled=profile_dir is not None)
     if verbose:
         print(f"Fused point cloud: {ply}")
@@ -755,7 +818,7 @@ def run_scene_batched(
 
     A schedule whose first pass is not FIRST_INIT raises (the reference
     package re-initialises there silently)."""
-    from apdmvs_tpu_torch import compiled, parallel
+    from apdmvs_tpu_torch import parallel
     from apdmvs_tpu_torch.parallel import multihost
 
     device = resolve_device(device)
@@ -835,6 +898,10 @@ def run_scene_batched(
                                              H * W)
             if weak_capacity == 0:
                 eff = dataclasses.replace(eff, use_APD=False)
+            else:
+                telemetry.count("apd_view_passes", L)
+                telemetry.count("weak.in", int(weak_counts.sum()))
+                telemetry.count("weak.capacity", weak_capacity * L)
         all_depths = None
         if eff.geom_consistency:
             if multihost.any_positive(prior.depth):

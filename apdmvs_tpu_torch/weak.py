@@ -65,6 +65,12 @@ _JITTERS_PER_RADIUS = 2  # the reference uses 4 (APD.cu:1812); see radius_schedu
 # within a +-100 px box (APD.cu:1822-1828), whose reach along the ray is
 # >= 70 px a side, so 125 px steps leave no strong region unreachable.
 _MAX_RADIUS_GAP = 125
+#: bytes of f32 values a step holds where the weak machinery takes its
+#: candidates a chunk at a time (:func:`_warp_oob_batched`'s warped points,
+#: the anchor costs of :func:`_deformed_cost_vector_cols`), so that a
+#: DTU-size worklist (1048576 pixels, 8 anchors, 4 source views: 403 MB of
+#: anchor points a candidate) does not hold every candidate's at once
+_CHUNK_BYTES = 1 << 28
 
 
 def radius_schedule(width: int, height: int) -> Tuple[int, ...]:
@@ -562,14 +568,24 @@ def _deformed_cost_vector_volume(ctx: CostContext, weak_xy, plane, anchors: Anch
 def _warp_oob_batched(ctx: CostContext, Md: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """Out-of-source-bounds test for all source views at once. Md:
     [Vs, *pos, 3] = M_v @ dir per position; u: [B, *pos] inverse depths.
-    Returns [B, Vs, *pos] bool (APD.cu:546-556)."""
+    Returns [B, Vs, *pos] bool (APD.cu:546-556), a chunk of candidates at a
+    time (:data:`_CHUNK_BYTES`; elementwise, so the chunks change no
+    bit)."""
     cons = ncc.view_consts(ctx.volumes)  # [Vs, 21]
     shape_v = (1, -1) + (1,) * (Md.dim() - 2)
-    q = Md[None] + cons[:, 15:18].reshape(shape_v + (3,)) * u[:, None, ..., None]
-    px = q[..., 0] / q[..., 2]
-    py = q[..., 1] / q[..., 2]
-    return ((px < 0.0) | (px >= cons[:, 18].reshape(shape_v))
-            | (py < 0.0) | (py >= cons[:, 19].reshape(shape_v)))
+    b = cons[:, 15:18].reshape(shape_v + (3,))
+    width, height = cons[:, 18].reshape(shape_v), cons[:, 19].reshape(shape_v)
+    B = u.shape[0]
+    out = torch.empty(torch.broadcast_shapes((1,) + tuple(Md.shape[:-1]),
+                                             (B, 1) + tuple(u.shape[1:])),
+                      dtype=torch.bool, device=u.device)
+    step = max(1, _CHUNK_BYTES // (4 * Md.numel()))
+    for i in range(0, B, step):
+        q = Md[None] + b * u[i:i + step, None, ..., None]
+        px = q[..., 0] / q[..., 2]
+        py = q[..., 1] / q[..., 2]
+        out[i:i + step] = (px < 0.0) | (px >= width) | (py < 0.0) | (py >= height)
+    return out
 
 
 def _inv_depth(p, dirs):
@@ -620,15 +636,21 @@ def _deformed_cost_vector_cols(ctx: CostContext, weak_xy, plane, anchors: Anchor
     oob_c = _warp_oob_batched(ctx, geometry.mat3_vec(M[:, None], dirs_c[None]), u_c)
     center = torch.where(oob_c, COST_MAX, center)
 
-    # anchor terms
+    # anchor terms, a chunk of candidates at a time (_CHUNK_BYTES;
+    # each candidate's terms are its own, so the chunks change no bit)
     adirs = geometry.pixel_dirs(K0, a[..., 0].to(torch.float32), a[..., 1].to(torch.float32))
-    u_a = _inv_depth(p, adirs)  # [B, N, 8]
-    a_val = colsmod.contract_lookup(
-        wcols.c9, ((u_a - u_min) / du).reshape(B, N * _NUM_ANCHORS)
-    ).reshape(B, -1, N, _NUM_ANCHORS)  # [B, Vs, N, 8]
-    a_oob = _warp_oob_batched(ctx, geometry.mat3_vec(M[:, None, None], adirs[None]), u_a)
-
-    total = _anchor_terms(center, a_val, a_oob, valid, sel_at_anchor[None])  # [B, Vs, N]
+    Md_a = geometry.mat3_vec(M[:, None, None], adirs[None])  # [Vs, N, 8, 3]
+    total = torch.empty_like(center)  # [B, Vs, N]
+    step = max(1, _CHUNK_BYTES // (4 * center.shape[1] * N * _NUM_ANCHORS))
+    for i in range(0, B, step):
+        u_a = _inv_depth(p[i:i + step], adirs)  # [b, N, 8]
+        b = u_a.shape[0]
+        a_val = colsmod.contract_lookup(
+            wcols.c9, ((u_a - u_min) / du).reshape(b, N * _NUM_ANCHORS)
+        ).reshape(b, -1, N, _NUM_ANCHORS)  # [b, Vs, N, 8]
+        a_oob = _warp_oob_batched(ctx, Md_a, u_a)
+        total[i:i + step] = _anchor_terms(center[i:i + step], a_val, a_oob, valid,
+                                          sel_at_anchor[None])
     return _to_views(ctx, total, lead, N, COST_MAX)
 
 

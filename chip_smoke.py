@@ -2516,22 +2516,26 @@ def _scene_problems(folder, dev, slabs: int = 0):
     cache = scene.SceneCache(folder, expected_sets=len(problems))
     spec = build_schedule(2)[-1]
     sig = inspect.signature(pipeline.patchmatch_pass_impl)
-    real, out = pipeline.patchmatch_pass, []
+    real, out = pipeline.patchmatch_pass_impl, []
 
     def spy(*args, **kwargs):
         out.append(dict(sig.bind(*args, **kwargs).arguments))
         raise _Stop
 
-    pipeline.patchmatch_pass = spy
+    # eager: a compiled call builds the inputs it builds afresh (the depth
+    # volumes) in the compiled pass's slots, which the next call overwrites,
+    # so both problems' inputs would be the last one's
+    pipeline.patchmatch_pass_impl = spy
     try:
         for i in (0, 1):
             try:
                 scene.process_problem(cache, problems[i], spec, (W2, H2), 0, dev,
-                                      num_views_pad=V, num_slices=K, use_volumes=not slabs)
+                                      num_views_pad=V, num_slices=K, use_volumes=not slabs,
+                                      eager=True)
             except _Stop:
                 pass
     finally:
-        pipeline.patchmatch_pass = real
+        pipeline.patchmatch_pass_impl = real
     cap = max(kw["weak_capacity"] for kw in out)
     for i, kw in enumerate(out):
         del kw["draws"]

@@ -24,6 +24,9 @@ A CUDA graph needs a card, so the tests hold what the capture rests on:
   calls the body; ``profile_stages`` and a scene traced with
   ``profile_dir`` go through the compiled entry, as an untraced scene does
   (their stage times come from the graph's events on a card);
+- a device keeps the graphs of the last two scales it ran, and drops
+  them all at a third; a lent slot is the slot a pass's input of that
+  role fills, and a fill from the slot itself copies nothing;
 - ``scene.volume_cache_budget`` with the card's memory monkeypatched: 80
   GB pins five 1280x960 sets, 16 GB none; an explicit budget wins.
 
@@ -194,6 +197,29 @@ def test_body_on_filled_slots_equals_the_originals(small, path):
         _assert_equal(got, want)
 
 
+def test_graphs_of_two_scales_are_kept_and_slots_lent(monkeypatch):
+    """The device's bookkeeping alone (keys stand in for graphs): 800x600
+    and 1600x1200 are kept side by side, in either order; a third scale
+    drops both. A lent slot is the one a pass's input of its role, shape
+    and dtype fills, and filling it from itself copies nothing."""
+    monkeypatch.setattr(compiled, "_DEVICES", {})
+    dev = torch.device("cpu")
+    st = compiled._device_graphs(dev, (600, 800))
+    st.entries[(dev, 600, 800, "key")] = "graph"
+    assert compiled._device_graphs(dev, (1200, 1600)) is st
+    st.entries[(dev, 1200, 1600, "key")] = "graph"
+    assert compiled._device_graphs(dev, (600, 800)) is st and len(st.entries) == 2
+    E = st.lend("volumes.E", (4, 8, 6, 5), torch.bfloat16, dev)
+    assert st.slot("volumes.E", torch.zeros(4, 8, 6, 5, dtype=torch.bfloat16), dev) is E
+    E.fill_(1.0)
+    version = E._version
+    st.fill(E, E)
+    assert E._version == version
+    assert st.slot("volumes.E", torch.zeros(4, 8, 6, 6, dtype=torch.bfloat16), dev) is not E
+    third = compiled._device_graphs(dev, (2400, 3200))
+    assert third is not st and not third.entries and not third.slots
+
+
 def test_slot_fill_copies_again_after_a_change():
     st = compiled._DeviceGraphs()
     src = torch.arange(6.0)
@@ -349,15 +375,16 @@ def test_volume_cache_budget_from_the_cards_memory(monkeypatch, gb, pinned):
 def test_explicit_volume_cache_budget_wins():
     built = []
 
-    def builder():
+    def builder(out):
         built.append(1)
         return ncc.VolumeSet(E=torch.zeros(256), consts=torch.zeros(1), ref_pad=torch.zeros(1))
 
+    nbytes = 256 * 4 + 4 + 4
     for explicit, builds in ((0.0, 2), (None, 1)):
         built.clear()
         cache = scene.SceneCache(".", volume_cache_bytes=explicit, expected_sets=1)
         for _ in range(2):
-            cache.image_volumes(0, 64, builder, budget=1e12)
+            cache.image_volumes(0, 64, builder, nbytes, budget=1e12)
         assert len(built) == builds
     with pytest.raises(ValueError, match="budget"):
-        scene.SceneCache(".").image_volumes(0, 64, builder)
+        scene.SceneCache(".").image_volumes(0, 64, builder, nbytes)

@@ -151,9 +151,11 @@ def test_run_scene_profile_dir_writes_a_trace_timeline_reads(tmp_path, capsys, m
     assert all(st.weak_in for _, _, st in run.passes[2:])  # round 1 ran the weak stages
     led = timeline.read(trace)
     # the stages of the passes (on the CPU the compiled pass is the body)
-    # and the program's own spans, the fusion's included
+    # and the program's own spans, the fusion's and the APD pass's weak
+    # capacity included
     program = {"scene.inputs", "scene.prior", "cache.volume_set", "state.copy",
-               "state.write", "fusion.load", "fusion.core", "fusion.write"}
+               "state.write", "fusion.load", "fusion.core", "fusion.write",
+               "scene.weak_capacity"}
     assert set(led["spans"]) == {"apd." + s for s in set(pipeline.STAGES) | program}
     assert led["spans"]["apd.init"]["count"] == 2 and led["spans"]["apd.recost"]["count"] == 2
     assert led["spans"]["apd.weak_sweep"]["count"] == 2 * 3  # once an iteration

@@ -11,6 +11,11 @@ port's sequential runner, on the CPU:
 - the scene's telemetry (``SceneRun.telemetry``) counts its view-passes,
   the program's spans, the volume cache's hits and pinned builds and each
   stage's time, on the one-round run the fusion tests read;
+- every view of an APD pass runs one weak worklist capacity, the bucket
+  of the largest WEAK count among the pass's views, where each view's own
+  count would give two buckets: one weak key a pass, the weak counters,
+  and state files bit-equal to the batched runner's, which sizes the
+  capacity by the same rule;
 - a two-round schedule (REFINE_INIT with the weak machinery, a scale
   boundary) killed after pass 4 and resumed from the state files with a
   cold cache writes the uninterrupted run's state files byte for byte (the
@@ -25,7 +30,7 @@ import numpy as np
 import pytest
 import torch
 
-from apdmvs_tpu_torch import ncc, scene, telemetry
+from apdmvs_tpu_torch import compiled, ncc, pipeline, scene, telemetry
 from apdmvs_tpu_torch.datasets import synthetic
 from apdmvs_tpu_torch.io import formats, images as imio
 from apdmvs_tpu_torch.params import PixelState, build_schedule
@@ -123,6 +128,77 @@ def test_missing_prior_fails_loudly(tmp_path):
     assert stats.seconds > 0
     d = formats.read_bin_mat(os.path.join(problems[0].result_folder, "depths.dmb"))
     assert d.shape == (80, 96)
+
+
+def _init_then_apd(monkeypatch):
+    """The two-round schedule cut to its FIRST_INIT pass at half size and
+    the REFINE_INIT pass with APD at full size (passes 0 and 4): neither
+    is geometric, so the sequential (Gauss-Seidel) and the batched
+    (Jacobi) runner read the same priors, and their state files can be
+    held equal."""
+    full = build_schedule
+    monkeypatch.setattr(scene, "build_schedule", lambda rounds: [full(rounds)[i] for i in (0, 4)])
+
+
+def test_apd_pass_runs_one_weak_capacity(tmp_path, monkeypatch):
+    """The 3-view 160x120 ring scene with its textureless window, two rounds:
+    the views' WEAK counts entering pass 4 fall into two
+    ``_bucket_capacity`` buckets, so sizing each view alone (the rule
+    before one capacity a pass) would capture two weak keys in that pass.
+    ``run_scene`` gives every view of the pass the bucket of the largest
+    count, which is one compiled key, and counts it; its state files equal
+    ``run_scene_batched``'s bit for bit, whose capacity is the batch's
+    largest count's bucket (``test_torch_batched.py`` holds the batched
+    runner to the reference package's)."""
+    _init_then_apd(monkeypatch)
+    folders = {}
+    for name in ("seq", "bat"):
+        folders[name] = str(tmp_path / name)
+        cams, planes = synthetic.make_ring_scene(num_views=3, width=160, height=120,
+                                                 include_flat_region=True)
+        synthetic.write_mvsnet_dataset(folders[name], cams, planes, depth_ranges=(2.0, 8.0))
+    calls = []
+    real = pipeline.patchmatch_pass
+
+    def spy(cams, src_valid, prior, draws, cfg, volumes=None, weak_capacity=0, **kw):
+        if cfg.use_APD:
+            calls.append((int(torch.sum(prior.pixel_state == PixelState.WEAK)), weak_capacity,
+                          compiled.static_key(cams, prior, cfg, volumes, weak_capacity, False),
+                          cams, prior, cfg, volumes))
+        return real(cams, src_valid, prior, draws, cfg, volumes, weak_capacity=weak_capacity,
+                    **kw)
+
+    monkeypatch.setattr(pipeline, "patchmatch_pass", spy)
+    run = scene.run_scene(folders["seq"], device="cpu", min_rounds=2, num_slices=32,
+                          verbose=False)
+    seq_calls, calls[:] = list(calls), []
+    counts = [c[0] for c in seq_calls]
+    assert len(seq_calls) == 3 and [st.weak_in for _, _, st in run.passes[3:]] == counts
+    own = {scene._bucket_capacity(n, 160 * 120) for n in counts}
+    assert len(own) == 2, counts  # each view alone: two buckets, two weak keys
+    cap = scene._bucket_capacity(max(counts), 160 * 120)
+    assert [c[1] for c in seq_calls] == [cap] * 3
+    assert len({c[2] for c in seq_calls}) == 1
+    assert len({compiled.static_key(c[3], c[4], c[5], c[6], scene._bucket_capacity(c[0], 160 * 120),
+                                    False) for c in seq_calls}) == 2
+    counters = run.telemetry["counters"]
+    assert (counters["apd_view_passes"], counters["weak.in"], counters["weak.capacity"]) == (
+        3, sum(counts), 3 * cap)
+    assert run.telemetry["spans"]["scene.weak_capacity"]["count"] == 1
+    assert counters.get("compiled.pool_bytes", 0) == 0  # the CPU captures nothing
+
+    bat = scene.run_scene_batched(folders["bat"], device="cpu", min_rounds=2, num_slices=32,
+                                  verbose=False)
+    assert [c[1] for c in calls] == [cap] * 3 and [c[0] for c in calls] == counts
+    assert (bat.telemetry["counters"]["weak.in"], bat.telemetry["counters"]["weak.capacity"]) == (
+        sum(counts), 3 * cap)
+    for p in scene.generate_sample_list(folders["seq"]):
+        rel = os.path.relpath(p.result_folder, folders["seq"])
+        for name in STATE_FILES:
+            with open(os.path.join(p.result_folder, name), "rb") as f:
+                a = f.read()
+            with open(os.path.join(folders["bat"], rel, name), "rb") as f:
+                assert f.read() == a, (rel, name)
 
 
 @pytest.mark.slow  # 66 s on the CPU with two threads (24 + 12 view-passes)

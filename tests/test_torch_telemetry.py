@@ -3,7 +3,8 @@ span nesting and totals, scene snapshots and their differences, the
 bounded ``recent_scenes``, the ``profiled`` flag under a running
 ``torch.profiler``, the volume cache's counters across passes and a change
 of scale, the kernel wrappers' work counters by call shape and the stage
-clock on the host. On a card (the ``chip`` marker; they skip here): a
+clock on the host, and the weak worklist's counters and the graph pool
+of a scene with an APD pass. On a card (the ``chip`` marker; they skip here): a
 replay whose graph holds the stage events stays bit-equal to the body,
 and its stage times sum to at most its wall.
 
@@ -17,7 +18,7 @@ import time
 import pytest
 import torch
 
-from apdmvs_tpu_torch import ops, scene, telemetry
+from apdmvs_tpu_torch import compiled, ops, scene, telemetry
 from apdmvs_tpu_torch.ops import cols, ncc_volume, volume
 
 torch.set_num_threads(2)
@@ -88,12 +89,12 @@ def test_scene_cache_counts_hits_builds_and_pins_per_scale():
     folder = "unused"
     cache = scene.SceneCache(folder, volume_cache_bytes=1000, expected_sets=2)
 
-    def builder(n):
-        return lambda: (torch.zeros(n, dtype=torch.uint8), torch.zeros(n // 4))
+    def builder(n):  # a set of 2n bytes
+        return lambda out: (torch.zeros(n, dtype=torch.uint8), torch.zeros(n // 4))
 
     def pass_over(width, n):
         for view in (0, 1):
-            cache.image_volumes(view, width, builder(n))
+            cache.image_volumes(view, width, builder(n), 2 * n)
 
     snap = _scene(lambda: (pass_over(96, 100), pass_over(96, 100)))
     assert cache.volume_stats == {"hits": 2, "builds": 2, "pinned_builds": 2,
@@ -106,6 +107,31 @@ def test_scene_cache_counts_hits_builds_and_pins_per_scale():
     snap = _scene(lambda: (pass_over(48, 400), pass_over(48, 400)))
     assert cache.volume_stats == {"hits": 0, "builds": 4, "pinned_builds": 0, "pinned_bytes": 0}
     assert snap["counters"] == {"cache.builds": 4}
+
+
+def test_apd_scene_counts_its_weak_worklist_and_no_pool_on_the_cpu(tmp_path, monkeypatch):
+    """A 2-view 64x48 ring scene with its textureless window, two rounds cut
+    to the FIRST_INIT pass and the APD pass (passes 0 and 4): ``weak.in``
+    (WEAK pixels entering the worklist) is at most ``weak.capacity`` (its
+    slots), ``apd_view_passes`` counts the view-passes that ran the weak
+    machinery, and the graph pool holds nothing on the CPU, which captures
+    no graph."""
+    from apdmvs_tpu_torch.datasets import synthetic
+    from apdmvs_tpu_torch.params import build_schedule
+
+    full = build_schedule
+    monkeypatch.setattr(scene, "build_schedule", lambda rounds: [full(rounds)[i] for i in (0, 4)])
+    folder = str(tmp_path / "scene")
+    cams, planes = synthetic.make_ring_scene(num_views=2, width=64, height=48,
+                                             include_flat_region=True)
+    synthetic.write_mvsnet_dataset(folder, cams, planes, depth_ranges=(2.0, 8.0))
+    run = scene.run_scene(folder, device="cpu", min_rounds=2, num_slices=32, verbose=False)
+    counters = run.telemetry["counters"]
+    apd = [stats for spec, _, stats in run.passes if spec.use_APD]
+    assert len(apd) == 2 and counters["apd_view_passes"] == len(apd)
+    assert counters["weak.in"] == sum(stats.weak_in for stats in apd)
+    assert 0 < counters["weak.in"] <= counters["weak.capacity"]
+    assert counters.get("compiled.pool_bytes", 0) == 0 and compiled.pool_bytes("cpu") == 0
 
 
 def test_work_shapes_of_each_wrapper():

@@ -193,6 +193,25 @@ def test_deformed_and_geom_costs_match(sc):
         assert close.mean() >= 0.999, (name, close.mean())
 
 
+@pytest.mark.parametrize("chunk_bytes", [1, 4096])
+def test_deformed_costs_in_chunks_change_no_bit(sc, monkeypatch, chunk_bytes):
+    """The anchor terms and the out-of-bounds tests of
+    ``_warp_oob_batched`` a chunk of the 10 candidates at a time (one a
+    step; a few a step) give the deformed costs of one step over all of
+    them at once, bit for bit."""
+    tw = tweak.build_weak_cols(sc["tctx"], sc["txy"], sc["ta"])
+    planes = convert.tensor(_candidate_planes(sc))
+    sel = convert.tensor(sc["jst"].selected)
+
+    def costs():
+        return tweak.deformed_cost_vector(sc["tctx"], sc["txy"], planes, sc["ta"], sel,
+                                          tw).view(torch.int32)
+
+    whole = costs()  # at this size one step holds every candidate
+    monkeypatch.setattr(tweak, "_CHUNK_BYTES", chunk_bytes)
+    assert torch.equal(costs(), whole)
+
+
 def test_ransac_fit_planes_match(sc):
     k_iters = jax.random.split(sc["key"], 3)[2]
     k_fit = jax.random.split(jax.random.split(jax.random.fold_in(k_iters, 1), 3)[2], 3)[0]
