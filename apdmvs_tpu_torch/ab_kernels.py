@@ -1,8 +1,8 @@
-"""Device times of the port's kernels H1-H8 found under ROOT.
+"""Device times of the port's kernels H1-H9 found under ROOT.
 
     python apdmvs_tpu_torch/ab_kernels.py ROOT [GROUP ...]
 
-GROUP is any of h1, h2, h3, h4, h5, h6, h7, h8 (default: all of them).
+GROUP is any of h1, h2, h3, h4, h5, h6, h7, h8, h9 (default: all of them).
 
 Imports ``apdmvs_tpu_torch`` from ROOT (a checkout, or a commit unpacked
 with ``git archive``), builds its kernels and times, on the card, in device
@@ -44,7 +44,13 @@ plane fields of ``chip_smoke.py`` phase 2):
   weak sweep's candidates (``trace_pass.weak_lookups``), B=10 and 5: C36
   and C9 tent, D nearest; and C9 tent with k in a 4-slice band and over all
   of K (``H6_c9_tent_band_B10``, ``H6_c9_tent_spread_B10``). Each nearest
-  case also beside ``torch.gather`` along K.
+  case also beside ``torch.gather`` along K;
+- H9 ``build_cost_volumes`` at the DTU cell's shape (C36 and C9 of 4
+  source views x 160 slices of a 1600x1200 set, E [4, 160, 1216, 1920] of
+  seeded random grey levels), where the package has it, beside the plain
+  build the scene runner ran before it (``build_cost_volume`` of each view
+  and window, each copied into its stack), timed with CUDA events around
+  one build.
 
 It prints one line ``ABK ROOT {json}`` of milliseconds, and the card's name
 and power limit. To compare two commits on one card, run it in fresh
@@ -81,7 +87,7 @@ def graph_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-GROUPS = ("h1", "h2", "h3", "h4", "h5", "h6", "h7", "h8")
+GROUPS = ("h1", "h2", "h3", "h4", "h5", "h6", "h7", "h8", "h9")
 
 
 def _helpers(root: str):
@@ -330,6 +336,32 @@ def main(root: str, groups=GROUPS) -> None:
             times[f"index_select_{name}"] = graph_ms(
                 lambda: torch.index_select(table, 0, idx_cl))
             del table
+    if "h9" in groups:
+        from apdmvs_tpu_torch.ops import cost_volume as cv
+
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        E9 = (torch.rand((4, 160, 1216, 1920), generator=gen, device=dev) * 255.0).to(
+            torch.bfloat16)
+        ref9 = torch.rand((1216, 1920), generator=gen, device=dev) * 255.0
+        o36, o9 = torch.empty_like(E9), torch.empty_like(E9)
+        if hasattr(cv, "build_cost_volumes"):
+            times["H9_dtu"] = graph_ms(lambda: cv.build_cost_volumes(E9, ref9, o36, o9), reps=5)
+
+        def plain():
+            for v in range(E9.shape[0]):
+                o36[v] = cv.build_cost_volume(E9[v], ref9, 5, 2)
+                o9[v] = cv.build_cost_volume(E9[v], ref9, 5, 5)
+
+        plain()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        plain()
+        end.record()
+        torch.cuda.synchronize()
+        times["H9_plain_dtu"] = start.elapsed_time(end)
+        del E9, ref9, o36, o9
     print(f"ABK {sys.argv[1]} " + json.dumps(times), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)

@@ -173,7 +173,8 @@ def build_image_volume_set(images: torch.Tensor, cams: Cameras, depth_min, depth
     grid), so the scene runner builds them once per (problem, scale) and
     reuses them across the round's passes. ``out(role, shape, dtype)``,
     where given, makes the tensors E, C36 and C9 are built in (roles
-    ``volumes.E`` ...; ``compiled.lender``), a view at a time."""
+    ``volumes.E`` ...; ``compiled.lender``): E a view at a time, C36 and C9
+    by one ``cost_volume.build_cost_volumes`` call (kernel H9 on a card)."""
     return _volume_slabs(images, cams, depth_min, depth_max, [images.device], num_slices,
                          None, weak_cost_volumes, out)[0][0]
 
@@ -337,10 +338,9 @@ def _volume_slabs(images, cams: Cameras, depth_min, depth_max, devices, num_slic
         ref_slab = ref_pad[row0:row0 + Hs + 2 * PAD_Y].to(dev, copy=True)
         C36 = C9 = None
         if weak_cost_volumes:
-            C36 = _views_into(lambda i: cost_volume.build_cost_volume(E[i], ref_slab, 5, 2),
-                              V - 1, "volumes.C36", torch.bfloat16, out)
-            C9 = _views_into(lambda i: cost_volume.build_cost_volume(E[i], ref_slab, 5, 5),
-                             V - 1, "volumes.C9", torch.bfloat16, out)
+            slots = [None, None] if out is None else [
+                out(role, tuple(E.shape), torch.bfloat16) for role in ("volumes.C36", "volumes.C9")]
+            C36, C9 = cost_volume.build_cost_volumes(E, ref_slab, *slots)
         slab = VolumeSet(E=E, consts=_with_row0(consts, row0, dev), ref_pad=ref_slab,
                          C36=C36, C9=C9)
         if depth_maps is not None:

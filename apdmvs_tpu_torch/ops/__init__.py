@@ -22,7 +22,11 @@
   (``gather_rows.cu``): ``cols.py:151 _make_sorted_gather_kernel`` and the
   table entry point of ``cols.py:50``;
 - H8 ``volume.volume_sample`` (``volume_sample.cu``): ``volume.py:375
-  _select_kernel``.
+  _select_kernel``;
+- H9 ``cost_volume.build_cost_volumes`` (``cost_volume.cu``): no TPU kernel
+  (the reference package's ``cost_volume.py:build_cost_volume`` is plain
+  array code, left to XLA); the cost volumes C36 and C9 of every source
+  view in one launch.
 
 Exported here, as the reference package's ``ops`` exports them:
 ``inv_depth_grid``, ``depth_to_slice``, ``volume_sample`` and
@@ -35,10 +39,11 @@ du, num_slices, dtype, trunc)``. ``pad_y=pad_x=0`` gives the reference's
 grid.
 
 :func:`launch_counters` names every wrapper that counts its launches; H1,
-H2, H4, H5 and H6 also count them by call shape in ``<wrapper>.work``
+H2, H4, H5, H6 and H9 also count them by call shape in ``<wrapper>.work``
 (``telemetry.count_launch``; the shape functions ``volume.build_work_shape``,
 ``ncc_volume.ncc_work_shape`` and ``geom_work_shape``,
-``cols.gather_work_shape`` and ``contract_work_shape``).
+``cols.gather_work_shape`` and ``contract_work_shape``,
+``cost_volume.cost_volumes_work_shape``).
 """
 
 from apdmvs_tpu_torch.ops.volume import (  # noqa: F401
@@ -54,11 +59,11 @@ def launch_counters():
     """Every kernel wrapper with a launch counter (``<wrapper>.launches``,
     one added where it launches its kernel; with ``<wrapper>.work``, by
     call shape), by name."""
-    from apdmvs_tpu_torch.ops import cols, ncc_volume as nv, volume as vol
+    from apdmvs_tpu_torch.ops import cols, cost_volume as cv, ncc_volume as nv, volume as vol
 
     return {"build_volume": vol.build_volume, "ncc_cost": nv.ncc_cost,
             "ncc_cost_views": nv.ncc_cost_views, "rebase_view": nv.build_rebased_view,
             "geom_cost": nv.geom_volume_cost_view, "geom_cost_views": nv.geom_cost_views,
             "gather_cols": cols.gather_cols, "contract_lookup": cols.contract_lookup,
             "gather_rows": cols.gather_rows, "gather_rows_sorted": cols.gather_rows_sorted,
-            "volume_sample": vol.volume_sample}
+            "volume_sample": vol.volume_sample, "build_cost_volumes": cv.build_cost_volumes}

@@ -43,6 +43,7 @@ SOURCES = {
     "contract_lookup": "contract_lookup.cu",
     "gather_rows": "gather_rows.cu",
     "volume_sample": "volume_sample.cu",
+    "cost_volume": "cost_volume.cu",
 }
 
 NVCC_FLAGS = [

@@ -3,7 +3,10 @@
 
 Run from the repository root on a machine with one NVIDIA card:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+(``--parent DIR``: a copy of another commit, made with ``git archive``,
+whose package runs phase 7's scene again; see phase 7.)
 
 Phases, each printed on its own line; any failure raises (exit code != 0)
 and no ``ok`` line is printed:
@@ -35,7 +38,13 @@ and no ``ok`` line is printed:
    and a ``torch.stack``, as the main path evaluated it before. Then H4
    over four views of K=160 at 3200x2400, C=8 (19.7 GB of depth volume
    from a seeded generator, more than 2^32 elements), bit-exact view by
-   view.
+   view. Then H9 (``cost_volume.build_cost_volumes``) against the plain
+   build, bit for bit: the image volumes of view 0 of the DTU cell's scene
+   (``mvsbench``'s dtu_apd_scan, 1600x1200, 4 source views x 160 slices)
+   built by ``ncc.build_image_volume_set`` into the compiled pass's lent
+   slots (filled with NaN first), timed in device time beside its bound and
+   the plain build; random volumes at odd shapes with NaN, inf and constant
+   patches; a 2-slab set of the 640x480 scene.
 3. main path: renders the 5-view 640x480 ring scene, writes it as a
    dataset, and runs ``scene.run_scene(device="cuda")``: one round of 4
    passes x 5 views (FIRST_INIT + 3 geometric REFINE_ITER) and ETH fusion.
@@ -95,12 +104,16 @@ and no ``ok`` line is printed:
    depth error < 0.01 over interior pixels and over the weak box.
 7. two rounds: a 1280x960 five-view scene with a textureless window
    through ``scene.run_scene``: two rounds (40 view-passes), the second
-   with the weak machinery, then ETH fusion. H1, H2, H4, H5, H6 must have
-   launched and > 1000 weak pixels must enter round 1's REFINE_INIT pass of
+   with the weak machinery, then ETH fusion. H1, H2, H4, H5, H6 and H9 must
+   have launched (H9 only where the weak machinery runs: in no one-round
+   run of any phase) and > 1000 weak pixels must enter round 1's REFINE_INIT pass of
    view 0. Checks: per-view median relative depth error < 0.01 on interior
    pixels, < 0.02 on view 0's textureless core, > 1000 fused points and
    median point-to-plane distance < 0.05. H3 and the one-view H2 and H4
-   wrappers must not have launched. The outputs stay for phases 8 and 14.
+   wrappers must not have launched. With ``--parent DIR`` the package
+   under DIR runs the same scene in a fresh process, and every state file
+   and the fused cloud must equal this run's byte for byte (phase 15 holds
+   its runs against phase 7's files). The outputs stay for phases 8 and 14.
 8. fusion: the four variants of ``scene.run_fusion`` (eth, eth-device,
    tat_intermediate, tat_advanced) on phase 7's outputs, each timed twice
    with the host clock (views loaded, fused, PLY written); every cloud's
@@ -112,7 +125,7 @@ and no ``ok`` line is printed:
    card, each row (points, accuracy, completeness, F1 at 0.05) printed
    beside the JAX package's round-4 F1 on a TPU (BASELINE.md) and held to
    the JAX package's floors (tests/test_quality.py); H1, H2 and H4 must
-   launch on every family, H5 and H6 on multiround.
+   launch on every family, H5, H6 and H9 on multiround.
 10. bench: ``apdmvs_tpu_torch.bench``'s measurement (depth-maps/s of the
    flagship pass with amortized volume builds, median of 5, and
    ``batched_maps_per_sec``: 4 copies of the flagship problem through the
@@ -129,7 +142,7 @@ and no ``ok`` line is printed:
 12. direct: the one-round scene through
    ``scene.run_scene_batched(use_volumes=False)``, the direct-warp path,
    and the flagship APD pass with ``volumes=None`` once, its stages timed
-   with a device synchronise around each; every launch counter of H1-H8
+   with a device synchronise around each; every launch counter of H1-H9
    must stay at 0 over each run; phase 3's checks, and the flagship's
    median relative depth error < 0.01 over interior pixels and the weak
    box. The walls per view-pass of phases 3, 7, 11 and 12 in one line.
@@ -197,12 +210,12 @@ and no ``ok`` line is printed:
    flagship replay (device events only: no span replays), the keys and
    slot bytes at each scale, and the one-round scene run compiled and
    eagerly (walls per view-pass, peaks, captures; state files byte-equal)
-   and the two-round scene run eagerly with ``volume_cache_gb=6``, its
-   state files byte-equal to phase 7's compiled run with the default
-   cache. One JSON line ``{"compiled": [...]}`` holds the keys' rows.
+   and the two-round scene run eagerly with ``volume_cache_gb=6``, H9
+   launched and its state files byte-equal to phase 7's compiled run with
+   the default cache. One JSON line ``{"compiled": [...]}`` holds the keys' rows.
 
 Then it prints the ``kernels`` JSON line (launches: H1, H2 and H4 from
-phase 3, H5-H6 from phase 7, H3, H7 and H8 from phase 5, and each
+phase 3, H5, H6 and H9 from phase 7, H3, H7 and H8 from phase 5, and each
 kernel's ``sharded`` launches from phase 13's 2 x 2 run, compiled; a
 replay counts the launches its key's capture recorded, and a capture's
 warm-up pass counts its own; times in device time where the script takes
@@ -237,8 +250,14 @@ F32_FLOPS = 67e12
 # clamp 2, floor and fraction 2, lerp 4, the three sums s, ss, rs 5), 46 per
 # output (folding the plane 6, moments, epilogue and centre warp 40) and 3
 # per window sample of a pixel (the reference sums r, rr, shared by every
-# view and field); H4 ~60 per output (depth, slice, warp, reprojection, error).
-OPS_H1, OPS_H2_SAMPLE, OPS_H2_OUT, OPS_H2_REF, OPS_H4 = 22, 17, 46, 3, 60
+# view and field); H4 ~60 per output (depth, slice, warp, reprojection, error);
+# H9 90 per output pixel of both cost volumes (the products e e and ref e 2,
+# the x- and y-sums of e, e e, ref e 27 + 27, each window's means, moments,
+# clamps and tests 17 each).
+OPS_H1, OPS_H2_SAMPLE, OPS_H2_OUT, OPS_H2_REF, OPS_H4, OPS_H9 = 22, 17, 46, 3, 60, 90
+# the DTU cell's scene whose image volumes H9 is held on (a seed of the
+# benchmark's dtu_apd_scan)
+DTU_CONFIG, DTU_WORKLOAD, DTU_SEED = "dtu_1600x1200_v5", "dtu_apd_scan", 3190000101
 
 W, H, V, K = 640, 480, 5, 160
 W2, H2 = 1280, 960  # the two-round scene
@@ -709,7 +728,124 @@ def phase_kernels(dev, inputs):
     del Ds
     h4_large(dev)
     torch.cuda.synchronize()
+    rows.append(h9_checks(dev, imgs, cams))
     return rows
+
+
+def _h9_against_plain(tag, E, ref, C36, C9):
+    """H9's C36 and C9 of every view of E against the plain build, bit for
+    bit (``bf16_ulps`` 0 and the same bits, NaN included); raises otherwise."""
+    import torch
+
+    from apdmvs_tpu_torch.ops import cost_volume as cv
+
+    worst = 0
+    for v in range(E.shape[0]):
+        for got, (radius, inc) in ((C36[v], (5, 2)), (C9[v], (5, 5))):
+            want = cv.build_cost_volume(E[v], ref, radius, inc)
+            same = torch.equal(got.view(torch.int16), want.view(torch.int16))
+            nan = torch.isnan(want)
+            ulps = int(bf16_ulps(got[~nan], want[~nan]).max()) if (~nan).any() else 0
+            worst = max(worst, ulps if same else max(ulps, 1))
+            del want
+    log(f"kernel H9 build_cost_volumes {tag}: E {list(E.shape)}, max {worst} bf16 ulp from "
+        f"the plain build (tol: 0, bit-equal)")
+    if worst:
+        raise AssertionError(f"H9 differs from the plain build ({tag})")
+
+
+def h9_checks(dev, imgs, cams):
+    """H9 (``cost_volume.build_cost_volumes``) against the plain build on the
+    card, bit for bit: (a) the image volumes of view 0 of the DTU cell's
+    scene (1600x1200, 4 source views x 160 slices) built by
+    ``ncc.build_image_volume_set`` into the compiled pass's lent slots, first
+    filled with NaN; (b) random volumes at odd shapes (a width that is not a
+    multiple of 4, one that is but not of 128, 37 and 7 slices) with NaN, inf
+    and constant patches; (c) a 2-slab set of the 640x480 scene
+    (``ncc.build_volume_set_spaced``). Times (a) in device time beside its
+    bound and the plain build; returns H9's kernels-line row."""
+    import numpy as np
+    import torch
+
+    from apdmvs_tpu_torch import compiled, geometry, ncc
+    from apdmvs_tpu_torch.ops import cost_volume as cv
+    from mvsbench import catalog, scenes
+
+    # (a) the DTU cell's image volumes in lent slots
+    cfg, traffic = catalog.config(DTU_CONFIG), catalog.workload(DTU_WORKLOAD)
+    sc = scenes.make_scene(cfg, traffic, DTU_SEED, dev)
+    nv_ = len(sc.cameras)
+    dcams = geometry.make_cameras(
+        np.stack([c.K for c in sc.cameras]), np.stack([c.R for c in sc.cameras]),
+        np.stack([c.t for c in sc.cameras]), np.full(nv_, sc.depth_min),
+        np.full(nv_, sc.depth_max), device=dev)
+    dimgs = torch.as_tensor(sc.images, device=dev).float()  # view 0 and its 4 sources
+    Kd = cfg["run"]["num_slices"]
+    lend = compiled.lender(dev, (sc.height, sc.width))
+    Hp, Wp = ncc.padded_grid(sc.height, sc.width)
+    shape = (nv_ - 1, Kd, Hp + 2 * 8, Wp + 2 * 128)
+    for role in ("volumes.C36", "volumes.C9"):
+        lend(role, shape, torch.bfloat16).fill_(float("nan"))
+    before = cv.build_cost_volumes.launches
+    vs = ncc.build_image_volume_set(dimgs, dcams, sc.depth_min, sc.depth_max, num_slices=Kd,
+                                    out=lend)
+    torch.cuda.synchronize()
+    if cv.build_cost_volumes.launches != before + 1 or vs.C36 is not lend(
+            "volumes.C36", shape, torch.bfloat16):
+        raise AssertionError("H9 did not build the set's cost volumes in the lent slots")
+    _h9_against_plain(f"DTU {sc.width}x{sc.height} view 0, lent slots", vs.E, vs.ref_pad,
+                      vs.C36, vs.C9)
+
+    def h9():
+        return cv.build_cost_volumes(vs.E, vs.ref_pad, vs.C36, vs.C9)
+
+    def plain():
+        for v in range(vs.E.shape[0]):
+            cv.build_cost_volume(vs.E[v], vs.ref_pad, 5, 2)
+            cv.build_cost_volume(vs.E[v], vs.ref_pad, 5, 5)
+
+    ms, call = graph_ms(h9, 5), time_ms(h9, 5)
+    plain_ms = time_ms(plain, 1, 1)
+    n = vs.E.numel()
+    b_ms, b_by = bound(3 * n * 2 + vs.ref_pad.numel() * 4, n * OPS_H9)
+    log(f"kernel H9 build_cost_volumes at the DTU cell's shape {list(vs.E.shape)}: device "
+        f"{ms:.4f} ms, {call:.4f} ms a call (plain build {plain_ms:.1f}; bound {b_ms:.4f} by "
+        f"{b_by}, {b_ms / ms:.3f} of it); no single PyTorch call computes it")
+    row = dict(name="build_cost_volumes", route="cuda",
+               source="apdmvs_tpu_torch/csrc/cost_volume.cu",
+               replaces="none (apdmvs_tpu/ops/cost_volume.py:39 is XLA array code)",
+               max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=None)
+    del vs, sc, dimgs
+    compiled.drop(dev)
+    torch.cuda.empty_cache()
+
+    # (b) odd shapes, NaN, inf and constant patches
+    gen = torch.Generator(device=dev).manual_seed(9)
+    for NV, Kb, PHb, PWb in ((3, 37, 205, 333), (1, 7, 61, 260)):
+        E = (torch.rand((NV, Kb, PHb, PWb), generator=gen, device=dev) * 255.0)
+        ref = torch.rand((PHb, PWb), generator=gen, device=dev) * 255.0
+        E[:, :, 40:70, 60:140] = 128.0
+        ref[40:70, 60:140] = 128.0
+        E[0, 1, 20, 30] = float("nan")
+        E[0, 2, 25, 35] = float("inf")
+        ref[30, 200] = float("-inf")
+        E = E.to(torch.bfloat16)
+        C36 = torch.full_like(E, float("nan"))
+        C9 = torch.full_like(E, float("nan"))
+        cv.build_cost_volumes(E, ref, C36, C9)
+        torch.cuda.synchronize()
+        _h9_against_plain(f"random {NV}x{Kb}x{PHb}x{PWb} with NaN, inf, constant patches", E,
+                          ref, C36, C9)
+    del E, ref, C36, C9
+
+    # (c) a 2-slab set of the 640x480 scene
+    vss = ncc.build_volume_set_spaced(imgs, cams, 1.2, 9.6, [dev, dev], num_slices=K)
+    for s_, slab in enumerate(vss.slabs):
+        _h9_against_plain(f"640x480 slab {s_} of 2", slab.E, slab.ref_pad, slab.C36, slab.C9)
+    del vss
+    torch.cuda.empty_cache()
+    return row
 
 
 def h4_large(dev, NV=4, C=8, H4=2400, W4=3200):
@@ -785,7 +921,7 @@ def h4_large(dev, NV=4, C=8, H4=2400, W4=3200):
 # points that no default path calls (H7, H8, H3 with H2's two rebased
 # entries) with H2 on K10's case
 ONE_ROUND_KERNELS = ("build_volume", "ncc_cost_views", "geom_cost_views")
-TWO_ROUND_KERNELS = ONE_ROUND_KERNELS + ("gather_cols", "contract_lookup")
+TWO_ROUND_KERNELS = ONE_ROUND_KERNELS + ("gather_cols", "contract_lookup", "build_cost_volumes")
 OPS_KERNELS = ("volume_sample", "gather_rows", "gather_rows_sorted", "ncc_cost", "rebase_view")
 # counters that no default path may advance: H2 and H4 one view at a time,
 # and H3
@@ -956,7 +1092,9 @@ def _check_launches(tag, launches, need):
     missing = [n for n in need if launches[n] == 0]
     if missing:
         raise AssertionError(f"{tag}: kernels not launched: {missing}")
-    stray = [n for n in NOT_ON_MAIN_PATH if launches[n] != 0]
+    # H9 builds the weak machinery's cost volumes: only where it runs
+    stray = [n for n in NOT_ON_MAIN_PATH + ("build_cost_volumes",)
+             if launches[n] != 0 and n not in need]
     if stray:
         raise AssertionError(f"{tag}: launched {stray}")
 
@@ -1738,14 +1876,54 @@ def phase_two_rounds(dev, folder):
         f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
         + json.dumps(launches))
     _two_round_checks("two rounds", folder, images, depths, planes_s, run, launches)
+    if PARENT is not None:
+        _against_parent("two rounds", folder, run.ply)
     return launches, planes_s, 1e3 * wall / len(run.passes)
+
+
+def _against_parent(tag, folder, ply):
+    """The scene in ``folder`` run again by the package of another commit
+    (``--parent DIR``, a copy made with ``git archive``) in a fresh process
+    on the same card, on a copy of its inputs: every state file and the
+    fused cloud must equal this run's byte for byte."""
+    import torch
+
+    from apdmvs_tpu_torch import compiled
+
+    compiled.drop()
+    torch.cuda.empty_cache()
+    other = f"{folder}_parent"
+    shutil.rmtree(other, ignore_errors=True)
+    shutil.copytree(folder, other, ignore=shutil.ignore_patterns("APD"))
+    root = os.path.abspath(PARENT)
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "from apdmvs_tpu_torch import scene; "
+            "print(scene.run_scene(sys.argv[2], device='cuda', verbose=False).ply)")
+    try:
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-c", code, root, other], cwd=root,
+                             env=dict(os.environ, PYTHONPATH=root), capture_output=True,
+                             text=True, timeout=900)
+        if out.returncode != 0:
+            raise AssertionError(f"{tag}: the parent's run failed:\n{out.stderr[-4000:]}")
+        other_ply = out.stdout.strip().splitlines()[-1]
+        states_equal = _state_files(other) == _state_files(folder)
+        with open(ply, "rb") as a, open(other_ply, "rb") as b:
+            ply_equal = a.read() == b.read()
+        log(f"{tag}: the parent's run ({root}, {time.perf_counter() - t0:.1f} s in its own "
+            f"process): state files byte-equal {states_equal}, fused cloud byte-equal "
+            f"{ply_equal} (tol: byte-equal)")
+        if not (states_equal and ply_equal):
+            raise AssertionError(f"{tag}: the outputs differ from the parent's")
+    finally:
+        shutil.rmtree(other, ignore_errors=True)
 
 
 def phase_quality(dev):
     """The four scene families of ``apdmvs_tpu_torch.quality_table`` on the
     card: each row beside the JAX package's round-4 F1 on a TPU, held to the
     JAX package's floors (tests/test_quality.py); H1, H2 and H4 must launch
-    on every family, H5 and H6 on multiround (two rounds)."""
+    on every family, H5, H6 and H9 on multiround (two rounds)."""
     from apdmvs_tpu_torch import quality_table as qt
     from apdmvs_tpu_torch.bench import device_name
 
@@ -2654,11 +2832,11 @@ def _eager_run(runner, *args, **kwargs):
         pipeline.patchmatch_pass = real
 
 
-def _scene_walls(tag, folder, want_states, runs):
+def _scene_walls(tag, folder, want_states, runs, need=()):
     """Each of ``runs`` (label -> runner of the scene in ``folder``) from
     fresh state, its wall per view-pass, peak memory and captures; every
     run's state files must equal ``want_states`` (or the first run's) byte
-    for byte."""
+    for byte, and every kernel named in ``need`` must have launched."""
     import torch
 
     from apdmvs_tpu_torch import compiled
@@ -2668,7 +2846,10 @@ def _scene_walls(tag, folder, want_states, runs):
         shutil.rmtree(os.path.join(folder, "APD"), ignore_errors=True)
         caps = len(compiled.captures)
         torch.cuda.reset_peak_memory_stats()
-        run, wall, _ = _run_counted(runner, folder)
+        run, wall, launches = _run_counted(runner, folder)
+        missing = [n for n in need if launches[n] == 0]
+        if missing:
+            raise AssertionError(f"{tag}: {label} did not launch {missing}")
         got = _state_files(folder)
         states = got if states is None else states
         equal = got == states
@@ -2763,7 +2944,7 @@ def phase_compiled(dev, inputs, folder_2r, walls):
             f"{walls['two rounds']:.1f} ms a view-pass")
         _scene_walls("two-round scene against phase 7's files", folder, states_2r, {
             "eager, --volume-cache-gb 6": lambda f: _eager_run(
-                scene.run_scene, f, volume_cache_gb=6.0, **run)})
+                scene.run_scene, f, volume_cache_gb=6.0, **run)}, need=("build_cost_volumes",))
     finally:
         shutil.rmtree(folder, ignore_errors=True)
     compiled.drop()
@@ -2771,8 +2952,17 @@ def phase_compiled(dev, inputs, folder_2r, walls):
     print(json.dumps({"compiled": rows}), flush=True)
     return rows
 
+# --parent DIR: a checkout of the parent commit whose package runs phase 7's
+# scene again, its outputs held byte for byte against this commit's
+PARENT = None
+
+
 def main() -> int:
     import torch
+
+    global PARENT
+    if "--parent" in sys.argv:
+        PARENT = sys.argv[sys.argv.index("--parent") + 1]
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -2829,7 +3019,8 @@ def main() -> int:
         if r["name"] == "rebase_view":
             r["launches"] = ops_launches["rebase_view"]
         elif "launches" not in r:
-            r["launches"] = (launches_2r if r["name"] in ("gather_cols", "contract_lookup")
+            r["launches"] = (launches_2r if r["name"] in ("gather_cols", "contract_lookup",
+                                                          "build_cost_volumes")
                              else launches)[r["name"]]
     # and each kernel's launches in phase 13's 2 x 2 run (both wrappers of
     # H2 and H4, both entries of H7)

@@ -162,7 +162,8 @@ def test_work_counters_add_take_back_and_replay():
     counters = ops.launch_counters()
     with_work = {n for n, fn in counters.items() if hasattr(fn, "work")}
     assert with_work == {"build_volume", "ncc_cost", "ncc_cost_views", "geom_cost",
-                         "geom_cost_views", "gather_cols", "contract_lookup"}
+                         "geom_cost_views", "gather_cols", "contract_lookup",
+                         "build_cost_volumes"}
     saved = telemetry.kernel_counts()
     try:
         fn = counters["ncc_cost_views"]
