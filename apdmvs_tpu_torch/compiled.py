@@ -31,20 +31,23 @@ them.
   its slots before it launches. A slot is not copied again from the tensor
   it was last filled from while that tensor is unchanged (the same object
   at the same version).
-- **Memory.** The graphs of a device at one scale (H, W) capture into
-  one pool (a ``torch.cuda.MemPool``), so the keys' working sets share
-  memory, and a miss's warm-up runs in that pool too, on the capture
-  stream: the warm-up's working set reuses the blocks the earlier keys'
-  graphs use between their replays, and the capture then reuses the
-  warm-up's, so the card holds the largest working set of a scale's keys
-  once, not the pool beside a warm-up. Each scale has a pool of its own:
-  with one pool for 800x600 and 1600x1200, the 1600x1200 REFINE_INIT
-  replay of a second DTU scene read what the 800x600 replays had left in
-  the pool and differed from the first scene's. A
-  device keeps the graphs and slots of the last :data:`MAX_SCALES` scales
-  it ran; a call at another scale drops them all first. A scene of two
-  rounds (800x600 then 1600x1200) so captures its keys in its first scene
-  and nothing after.
+- **Memory.** Every graph of a device captures into one pool (a
+  ``torch.cuda.MemPool``), so the keys' working sets share memory, and a
+  miss's warm-up runs in that pool too, on the capture stream: the
+  warm-up's working set reuses the blocks the earlier keys' graphs use
+  between their replays, and the capture then reuses the warm-up's, so
+  the card holds the largest working set of the device's keys once, not
+  the pool beside a warm-up. One pool is safe because a graph reads
+  only what it writes itself, its inputs, which are slots, and device
+  constants made outside the pool: no replay reads a block of the pool
+  before writing it, so what another key or a warm-up left there never
+  reaches an output. So nothing made in a warm-up may outlive it in the
+  pool, whose blocks the other graphs write between their replays: the
+  weak machinery's constants (``weak.probe_constants``) are made before
+  the warm-up. A device keeps the graphs and slots of the last
+  :data:`MAX_SCALES` scales it ran; a call at another scale drops them
+  all first. A scene of two rounds (800x600 then 1600x1200) so captures
+  its keys in its first scene and nothing after.
 - **Lent slots** (:func:`lender`): an input that the caller builds afresh
   for every call (an image-volume set the scene's cache does not pin,
   the depth volumes) is built into the slot itself, so the card holds it
@@ -89,7 +92,7 @@ from typing import Dict, Optional
 
 import torch
 
-from apdmvs_tpu_torch import ncc, pipeline, rng, telemetry
+from apdmvs_tpu_torch import ncc, pipeline, rng, telemetry, weak
 from apdmvs_tpu_torch.geometry import Cameras
 from apdmvs_tpu_torch.parallel.spaced import SpacedVolumeSet
 
@@ -236,10 +239,10 @@ class Entry:
 
 
 class _DeviceGraphs:
-    """A device's graphs by key, their pools (one a scale) and slots."""
+    """A device's graphs by key, their pool and slots."""
 
     def __init__(self):
-        self.pools: Dict[tuple, object] = {}  # scale (H, W) -> its graphs' MemPool
+        self.pool = None  # the graphs' MemPool, at the first miss
         self.stream = None  # the capture stream, at the first miss
         self.scales: list = []  # the scales (H, W) called or lent at, in order
         self.entries: Dict[tuple, Entry] = {}
@@ -346,16 +349,16 @@ def entries(device) -> Dict[tuple, Entry]:
 
 
 def pool_bytes(device) -> int:
-    """Device bytes the segments of ``device``'s graph pools hold (the
+    """Device bytes the segments of ``device``'s graph pool hold (the
     caching allocator's snapshot); 0 off a card or before its first
     capture."""
     dev = _card(device)
     st = None if dev is None else _DEVICES.get(dev)
-    if st is None or not st.pools:
+    if st is None or st.pool is None:
         return 0
-    pools = {tuple(p.id) for p in st.pools.values()}
+    pool = tuple(st.pool.id)
     return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-               if seg["device"] == dev.index and tuple(seg.get("segment_pool_id", ())) in pools)
+               if seg["device"] == dev.index and tuple(seg.get("segment_pool_id", ())) == pool)
 
 
 def slot_bytes(device) -> int:
@@ -376,12 +379,16 @@ def _capture(st: _DeviceGraphs, key, args, draws, cfg, weak_capacity: int, debug
     """The miss of the module docstring; returns the new entry and the
     replay's outputs."""
     dev = key[0]
-    pool = st.pools.get(key[1:3])
-    if pool is None:
-        pool = st.pools[key[1:3]] = torch.cuda.MemPool()
-    if st.stream is None:
+    if st.pool is None:
+        st.pool = torch.cuda.MemPool()
         st.stream = torch.cuda.Stream(dev)
-    # the warm-up allocates in the scale's pool on the capture stream (the
+    pool = st.pool
+    if cfg.use_APD and weak_capacity > 0:
+        # the weak machinery's constants outlive the pass: made in the
+        # warm-up, they would sit in a block of the pool that the other
+        # graphs write between their replays
+        weak.probe_constants(cfg.rotate_time, key[2], key[1], dev)
+    # the warm-up allocates in the pool on the capture stream (the
     # pool's blocks belong to the stream they were made on), beside nothing
     # the earlier keys hold between their replays
     side = st.stream

@@ -35,8 +35,7 @@
 //   one or two buffers), a window of 8 slices a position, the candidates'
 //   k held in registers, 2 or 4 positions a thread with 8- or 16-byte
 //   stores, and reusing the slices the last candidate read. Each cost
-//   occupancy or latency that the fewer line passes did not pay back. The
-//   warp-slab design is kept as csrc/variants/contract_lookup_slab.cu.
+//   occupancy or latency that the fewer line passes did not pay back.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

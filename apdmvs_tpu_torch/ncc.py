@@ -11,9 +11,9 @@ APD.cu:752-789). Two paths evaluate the same costs:
   source view in one launch). The reference package routes its NCC
   evaluations through rebased volumes, banded and full-K kernels; they all
   compute the one function that H2 computes from E, so the port has one
-  NCC evaluator and builds no rebased volume. Point-mode evaluations with
-  the standard windows read the cost volumes C36 / C9
-  (:func:`point_cost_volume`).
+  NCC evaluator and builds no rebased volume. It evaluates full grids
+  only: the weak machinery's point evaluations (worklists, anchors) read
+  the resident columns of the volumes (``weak.build_weak_cols``).
 - the direct-warp path (a context without volumes, ``--no-volumes``): the
   homography warp of every window sample and a bilinear read of the
   images, in plain PyTorch, as the reference package computes it outside
@@ -608,54 +608,16 @@ def ncc_cost_view(ctx: CostContext, v: torch.Tensor, plane: torch.Tensor, radius
     return torch.where(center_oob, COST_MAX, cost)
 
 
-def point_warp_oob(ctx: CostContext, v_consts: torch.Tensor, dirs: torch.Tensor,
-                   u: torch.Tensor) -> torch.Tensor:
-    """Analytic out-of-source-bounds test of a warped point from one view's
-    packed consts [21] (the texture-bounds checks, APD.cu:546-556)."""
-    M = v_consts[6:15].reshape(3, 3)
-    b = v_consts[15:18]
-    q = geometry.mat3_vec(M, dirs) + b * u[..., None]
-    px = q[..., 0] / q[..., 2]
-    py = q[..., 1] / q[..., 2]
-    return (px < 0.0) | (px >= v_consts[18]) | (py < 0.0) | (py >= v_consts[19])
-
-
-def point_cost_volume(ctx: CostContext, plane: torch.Tensor, xs: torch.Tensor,
-                      ys: torch.Tensor, which: str):
-    """Point-mode patch NCC through the cost volumes (``which``: 'C36' for
-    radius 5 step 2, 'C9' for radius 5 step 5; the fronto-parallel-at-centre
-    approximation of ``ops/cost_volume.py``) at integer coordinates ``xs``,
-    ``ys`` ([P] or [P, A]) of planes [..., P(, 1), 4]. Returns (costs,
-    oob), each [V, ..., P(, A)]; view 0 and the invalid views cost
-    COST_MAX, view 0 counts as out of bounds."""
-    vs = ctx.volumes
-    if vs.spaced:
-        raise ValueError("point-mode cost-volume reads index whole volumes; a spaced set's "
-                         "weak machinery reads its resident columns (weak.build_weak_cols)")
-    C = vs.C36 if which == "C36" else vs.C9
-    u_min, du = vs.u_grid
-    dirs = geometry.pixel_dirs(ctx.cams.K[0], xs.to(torch.float32), ys.to(torch.float32))
-    u = -torch.sum(plane[..., :3] * dirs, dim=-1) / plane[..., 3]
-    k = (u - u_min) / du
-    costs, oobs = [], []
-    for v in range(1, ctx.num_views):
-        c = cost_volume.fetch_cost(C[v - 1], xs, ys, k, ncc_volume.PAD_Y, ncc_volume.PAD_X)
-        o = point_warp_oob(ctx, vs.consts[v - 1, 0], dirs, u)
-        costs.append(torch.where(o, COST_MAX, c))
-        oobs.append(o)
-    oob_all = torch.cat([torch.ones_like(oobs[0])[None], torch.stack(oobs)])
-    return _with_ref_view(ctx, torch.stack(costs), COST_MAX), oob_all
-
-
 def cost_vector(ctx: CostContext, plane: torch.Tensor, radius: int, increment: int,
                 xs: Optional[torch.Tensor] = None, ys: Optional[torch.Tensor] = None):
     """Per-view NCC costs [V, ...] (ComputeMultiViewCostVectorOld,
     APD.cu:707-716). On the volume path a grid evaluation [(C,) H, W, 4] is
     one H2 launch over all source views (the reference package's rebased,
-    full-K and sweep evaluators compute these same costs), and a point
-    evaluation with a standard window reads C36 / C9. Without volumes every
-    evaluation warps directly (:func:`ncc_cost_view`), all source views at
-    once."""
+    full-K and sweep evaluators compute these same costs); a point
+    evaluation there reaches the direct evaluator, which refuses a context
+    without images (the weak machinery reads resident columns). Without
+    volumes every evaluation warps directly (:func:`ncc_cost_view`), all
+    source views at once."""
     vs = ctx.volumes
     if xs is None and vs is not None:
         def views(sl, planes_cf):
@@ -667,11 +629,6 @@ def cost_vector(ctx: CostContext, plane: torch.Tensor, radius: int, increment: i
         return _grid_eval(ctx, plane, lambda planes_cf: views(vs, planes_cf))
     if xs is not None and vs is not None and vs.spaced:
         raise ValueError("a spaced set evaluates full grids only")
-    if (xs is not None and vs is not None and vs.C36 is not None
-            and (radius, increment) in ((5, 2), (5, 5))):
-        costs, _ = point_cost_volume(ctx, plane, xs, ys,
-                                     "C36" if (radius, increment) == (5, 2) else "C9")
-        return costs
     return _with_ref_view(
         ctx, ncc_cost_view(ctx, _source_views(ctx), plane, radius, increment, xs, ys), COST_MAX)
 

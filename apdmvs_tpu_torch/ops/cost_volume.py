@@ -8,8 +8,8 @@ pixel (y, x) against the image volume E under the fronto-parallel plane of
 slice k: the classic plane-sweep cost volume, from separable shifted sums
 of E and the padded reference image (no gathers). The deformed NCC of the
 weak machinery (ComputeBilateralNCCNew, APD.cu:400-528) then reads each
-anchor patch's cost as one k-interpolated lookup (``ops/cols.py``), or,
-without resident columns, :func:`fetch_cost`.
+anchor patch's cost as one k-interpolated lookup of its resident column
+(``ops/cols.py``).
 
 :func:`build_cost_volumes` builds C36 and C9 of every source view: on CPU
 tensors through :func:`build_cost_volume` (the plain version), on CUDA
@@ -133,24 +133,3 @@ def build_cost_volumes(E: torch.Tensor, ref_pad: torch.Tensor, out36=None, out9=
 
 build_cost_volumes.launches = 0
 build_cost_volumes.work = {}
-
-
-def fetch_cost(C: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor, k: torch.Tensor,
-               pad_y: int, pad_x: int) -> torch.Tensor:
-    """Cost at integer reference pixels (``xs``, ``ys``, unpadded) and
-    fractional slices ``k`` of a cost volume C [K, PH, PW] bf16: the two
-    neighbouring slices interpolated linearly, k clamped to [0, K-1] and
-    the pixel to the padded grid (2 gathers, f32; NaN k reads slice 0 and
-    gives NaN)."""
-    K, PH, PW = C.shape
-    kc = torch.clamp(k, 0.0, K - 1.0)
-    k0 = torch.floor(torch.nan_to_num(kc, nan=0.0)).to(torch.int64)
-    k1 = torch.clamp(k0 + 1, max=K - 1)
-    f = kc - k0.to(torch.float32)
-    xi = torch.clamp(xs.to(torch.int64) + pad_x, 0, PW - 1)
-    yi = torch.clamp(ys.to(torch.int64) + pad_y, 0, PH - 1)
-    flat = C.reshape(-1)
-    base = yi * PW + xi
-    c0 = flat[k0 * (PH * PW) + base].to(torch.float32)
-    c1 = flat[k1 * (PH * PW) + base].to(torch.float32)
-    return c0 * (1.0 - f) + c1 * f

@@ -17,11 +17,10 @@ deformation for textureless regions:
   patch + 0.75 * mean of the anchor patches, all at the candidate plane's
   depth. On the volume path it reads the per-pass resident columns of the
   cost volumes C36 and C9 (``ops/cols.py``: H5 gathers them, H6 looks them
-  up); without volumes every patch is warped directly
-  (``ncc.ncc_cost_view`` in point mode). The reference package's third
-  branch, C36 and C9 without resident columns, reads the cost volumes
-  point by point (``ncc.point_cost_volume``); no pass of the port takes
-  it.
+  up), and a volume-path context refuses the deformed cost without them;
+  without volumes every patch is warped directly (``ncc.ncc_cost_view``
+  in point mode). The reference package's third branch, C36 and C9 read
+  point by point without resident columns, has no counterpart.
 - CheckerboardPropagationWeak (APD.cu:1323-1508): candidates are the 8
   anchors' planes (STRONG anchors only), then the fit plane, the random
   refinement and the plain-NCC cost rewrite.
@@ -161,8 +160,11 @@ def nearest_strong_map(pixel_state: torch.Tensor) -> torch.Tensor:
 
 
 #: host-made constants of the probe stage on the device, made once per
-#: (kind, shape, device) outside any capture: a copy from host memory cannot
-#: be captured into a CUDA graph
+#: (kind, shape, device) outside any capture (a copy from host memory cannot
+#: be captured into a CUDA graph) and before a compiled pass's warm-up
+#: (:func:`probe_constants`): made inside it, a constant would outlive the
+#: warm-up in a block of the graph pool, which the device's other graphs
+#: write between their replays
 _DEVICE_CONSTANTS: dict = {}
 
 
@@ -173,6 +175,18 @@ def _device_constant(key, device, make) -> torch.Tensor:
     if key not in _DEVICE_CONSTANTS:
         _DEVICE_CONSTANTS[key] = torch.as_tensor(make(), device=device)
     return _DEVICE_CONSTANTS[key]
+
+
+def probe_constants(rotate_time: int, width: int, height: int, device):
+    """The probe stage's constants on ``device``, made on first use: the
+    8 x rotate_time base directions [D, 2] and the probe radii [P], each
+    radius of :func:`radius_schedule` taken :data:`_JITTERS_PER_RADIUS`
+    times."""
+    base = _device_constant(("directions", rotate_time), device,
+                            lambda: _base_directions(rotate_time))
+    radii = _device_constant(("radii", width, height), device, lambda: np.repeat(
+        np.asarray(radius_schedule(width, height), np.float32), _JITTERS_PER_RADIUS))
+    return base, radii
 
 
 def _base_directions(rotate_time: int) -> np.ndarray:
@@ -342,14 +356,11 @@ def probe_strong_points(pixel_state: torch.Tensor, weak_xy: torch.Tensor, draws,
     snap_flat = torch.where(nearest[..., 0] >= 0, nearest[..., 1] * W + nearest[..., 0],
                             torch.full_like(nearest[..., 0], -1)).reshape(-1)
 
-    base = _device_constant(("directions", rotate_time), dev,
-                            lambda: _base_directions(rotate_time))  # [D, 2]
+    base, radii = probe_constants(rotate_time, W, H, dev)  # [D, 2], [P]
     D = base.shape[0]
     angle = 45.0 / rotate_time
     cos_threshold = math.cos(math.radians(angle / 2.0))
     shift_range = max(int(math.tan(math.radians(angle / 2.0)) * 20), 1)
-    radii = _device_constant(("radii", W, H), dev, lambda: np.repeat(
-        np.asarray(radius_schedule(W, H), np.float32), _JITTERS_PER_RADIUS))
     shifts = draws.anchor_probes(radii.shape[0], D, shift_range)  # [P, D, 2]
     d = base[None] * 20.0 + shifts.to(torch.float32)
     d = d / torch.clamp(torch.sqrt(torch.sum(d * d, dim=-1, keepdim=True)), min=1e-12)
@@ -483,20 +494,21 @@ def deformed_cost_vector(ctx: CostContext, weak_xy, plane, anchors: AnchorData, 
                          wcols: Optional[WeakCols] = None, sel_at_anchor=None,
                          cfg: Optional[PassConfig] = None) -> torch.Tensor:
     """Deformed (APD) NCC per view, [V, ..., N], of candidate planes
-    [..., N, 4] (ComputeBilateralNCCNew, APD.cu:400-528): from the resident
-    columns ``wcols``; without them from C36 / C9 point by point when the
-    context carries them, else by direct warping (both read the windows of
-    ``cfg``). ``sel_at_anchor`` [Vs, N, 8]: the selected views at the
+    [..., N, 4] (ComputeBilateralNCCNew, APD.cu:400-528): on the volume
+    path from the resident columns ``wcols`` (a volume-path context without
+    them raises), without volumes by direct warping with the windows of
+    ``cfg``. ``sel_at_anchor`` [Vs, N, 8]: the selected views at the
     anchors (gathered from ``selected_grid`` when not given; the resident
     columns' branch only)."""
     if wcols is not None:
         if sel_at_anchor is None:
             sel_at_anchor = _sel_at_anchors(selected_grid, anchors.coords[:, 1:])[1:]
         return _deformed_cost_vector_cols(ctx, weak_xy, plane, anchors, sel_at_anchor, wcols)
+    if ctx.volumes is not None:
+        raise ValueError("the deformed cost on the volume path reads the resident columns "
+                         "(build_weak_cols)")
     if cfg is None:
         raise ValueError("the deformed cost without resident columns needs the pass's cfg")
-    if ctx.volumes is not None and ncc.first_slab(ctx.volumes).C36 is not None:
-        return _deformed_cost_vector_volume(ctx, weak_xy, plane, anchors, selected_grid)
     return _deformed_cost_vector_direct(ctx, weak_xy, plane, anchors, selected_grid, cfg)
 
 
@@ -549,20 +561,6 @@ def _deformed_cost_vector_direct(ctx: CostContext, weak_xy, plane, anchors: Anch
     total = _anchor_terms(center, a_cost, a_oob, a[..., 0] >= 0,
                           _per_view_axis(_sel_at_anchors(selected_grid, a)[1:], a_cost.dim()))
     return ncc._with_ref_view(ctx, total, COST_MAX)
-
-
-def _deformed_cost_vector_volume(ctx: CostContext, weak_xy, plane, anchors: AnchorData,
-                                 selected_grid) -> torch.Tensor:
-    """Deformed NCC through the cost volumes point by point: the centre term
-    from C36 at the weak pixel, the anchor terms from C9 at each anchor, all
-    at the candidate plane's depth there (``ncc.point_cost_volume``)."""
-    a = anchors.coords[:, 1:]  # [N, 8, 2]
-    center, _ = ncc.point_cost_volume(ctx, plane, weak_xy[..., 0], weak_xy[..., 1], "C36")
-    a_cost, a_oob = ncc.point_cost_volume(ctx, plane[..., None, :], a[..., 0], a[..., 1], "C9")
-    total = _anchor_terms(center, a_cost, a_oob, a[..., 0] >= 0,
-                          _per_view_axis(_sel_at_anchors(selected_grid, a), a_cost.dim()))
-    shape = (ctx.num_views,) + (1,) * (total.dim() - 1)
-    return torch.where(ctx.src_valid.reshape(shape), total, COST_MAX)
 
 
 def _warp_oob_batched(ctx: CostContext, Md: torch.Tensor, u: torch.Tensor) -> torch.Tensor:

@@ -126,11 +126,20 @@ and no ``ok`` line is printed:
    beside the JAX package's round-4 F1 on a TPU (BASELINE.md) and held to
    the JAX package's floors (tests/test_quality.py); H1, H2 and H4 must
    launch on every family, H5, H6 and H9 on multiround.
-10. bench: ``apdmvs_tpu_torch.bench``'s measurement (depth-maps/s of the
-   flagship pass with amortized volume builds, median of 5, and
-   ``batched_maps_per_sec``: 4 copies of the flagship problem through the
-   batched runner's volume path, their image-volume sets pinned within the
-   default budget, ``scene.volume_cache_budget``), its JSON line printed.
+10. pool: the compiled pass holds one graph pool per card, safe because
+   no replay reads a block of the pool that its own graph did not write.
+   For each benchmark cell (``POOL_CELLS``: ``dtu_apd_scan``, whose keys
+   at 800x600 and 1600x1200, APD included, share the pool, and
+   ``blendedmvs_scan`` at 768x576), a scene rendered from a seed of the
+   cell runs twice through ``scene.run_scene`` as ``mvsbench.run`` calls
+   it; before every pass of the second scene each free block of the pool
+   is filled with 0xFF bytes (NaN in every float type) where it lies.
+   Every view-pass of the second scene must equal the first scene's bit
+   for bit, no key may be captured again, the state files and the cloud
+   must be byte-equal, and no device constant of the weak machinery
+   (``weak.probe_constants``) may lie in the pool, whose blocks the
+   graphs write between their replays; the pool's size is printed. One
+   JSON line ``{"pool": [...]}`` holds the rows.
 11. batched: the one-round scene of phase 3 through
    ``scene.run_scene_batched`` on the card (H1, H2 through
    ``ncc_cost_views`` and H4 through ``geom_cost_views`` must launch, H3
@@ -238,23 +247,14 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and f32 rate
-# outside the tensor cores; the kernels do f32 arithmetic on CUDA cores.
-MEM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
-# f32 operations of each kernel's function, counted off its plain version
-# (the work the function needs, not the kernel's instructions):
-# H1 22 per output (3 adds of the warp, 2 divisions, clamp 4, floor 2,
-# weights 2, bilinear 9; M dirs is per pixel, b u per slice);
-# H2 17 per window sample of an output (slice coordinate from the plane 4,
-# clamp 2, floor and fraction 2, lerp 4, the three sums s, ss, rs 5), 46 per
-# output (folding the plane 6, moments, epilogue and centre warp 40) and 3
-# per window sample of a pixel (the reference sums r, rr, shared by every
-# view and field); H4 ~60 per output (depth, slice, warp, reprojection, error);
-# H9 90 per output pixel of both cost volumes (the products e e and ref e 2,
-# the x- and y-sums of e, e e, ref e 27 + 27, each window's means, moments,
-# clamps and tests 17 each).
-OPS_H1, OPS_H2_SAMPLE, OPS_H2_OUT, OPS_H2_REF, OPS_H4, OPS_H9 = 22, 17, 46, 3, 60, 90
+# the card's peaks, the operations of H1, H2 and H4, their bytes and the
+# bound are the benchmark's yardstick (mvsbench/roofline.py); H9 has none
+# there yet: 90 f32 operations per output pixel of both cost volumes (the
+# products e e and ref e 2, the x- and y-sums of e, e e, ref e 27 + 27,
+# each window's means, moments, clamps and tests 17 each)
+from mvsbench.roofline import OPS_H1, bound, h2_work, h4_work  # noqa: E402
+
+OPS_H9 = 90
 # the DTU cell's scene whose image volumes H9 is held on (a seed of the
 # benchmark's dtu_apd_scan)
 DTU_CONFIG, DTU_WORKLOAD, DTU_SEED = "dtu_1600x1200_v5", "dtu_apd_scan", 3190000101
@@ -265,12 +265,6 @@ W2, H2 = 1280, 960  # the two-round scene
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def bound(nbytes: float, ops: float):
-    t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -361,13 +355,17 @@ def h2_bound_views(planes_cf, views, touched, samples=36):
     """H2's bound for these fields over ``views`` source views: the NCC
     function's own traffic (the ``touched`` elements of E that the fields'
     windows read, the reference image under the windows, planes in, costs
-    out) or its f32 operations, the larger."""
+    out) or its f32 operations, the larger (``roofline.h2_work``)."""
     C, _, Hp, Wp = planes_cf.shape
-    nbytes = (touched * 2 + (Hp + 10) * (Wp + 10) * 4 + C * 4 * Hp * Wp * 4
-              + views * C * Hp * Wp * 4)
-    ops = (views * C * Hp * Wp * (samples * OPS_H2_SAMPLE + OPS_H2_OUT)
-           + Hp * Wp * samples * OPS_H2_REF)
-    return bound(nbytes, ops)
+    return bound(*h2_work(C, views, Hp, Wp, touched, samples))
+
+
+def h4_bound_views(planes_cf, views, touched):
+    """H4's bound for these fields over ``views`` source views: the
+    ``touched`` elements of D, planes in and costs out, or its f32
+    operations, the larger (``roofline.h4_work``)."""
+    C, _, Hp, Wp = planes_cf.shape
+    return bound(*h4_work(C, views, Hp, Wp, touched))
 
 
 def h2_bound(planes_cf, consts):
@@ -713,9 +711,8 @@ def phase_kernels(dev, inputs):
     ms_calls, call_calls = graph_ms(h4_one_view_calls), time_ms(h4_one_view_calls, 10)
     plain = time_ms(lambda: plain_geom(pl8, gconsts), 3, 1)
     touched = [geom_touched(pl8, gconsts[v], K) for v in range(V - 1)]
-    b_ms, b_by = bound(sum(touched) * 4 + C * 4 * Hp * Wp * 4 + (V - 1) * C * Hp * Wp * 4,
-                       (V - 1) * C * Hp * Wp * OPS_H4)
-    b1, b1_by = bound(touched[0] * 4 + C * Hp * Wp * (16 + 4), C * Hp * Wp * OPS_H4)
+    b_ms, b_by = h4_bound_views(pl8, V - 1, sum(touched))
+    b1, b1_by = h4_bound_views(pl8, 1, touched[0])
     rows.append(dict(name="geom_cost", route="cuda", source="apdmvs_tpu_torch/csrc/geom_cost.cu",
                      replaces="apdmvs_tpu/ops/ncc_volume.py:1370", max_abs_err=0.0, ms=ms,
                      plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=None))
@@ -2006,23 +2003,141 @@ def phase_fusion(dev, folder, planes):
     return points
 
 
-def phase_bench(dev):
-    """``python -m apdmvs_tpu_torch.bench``'s measurement (its defaults:
-    640x480x5, 5 repeats, 4 batched problems); its JSON line is printed."""
+# ---------------------------------------------------------------------------
+# Phase 10: one graph pool
+# ---------------------------------------------------------------------------
+
+#: the cells whose scenes phase 10 runs twice, and a seed of each
+POOL_CELLS = (("dtu_apd_scan", DTU_SEED), ("blendedmvs_scan", 3000000312))
+
+
+def _pass_digest(out) -> str:
+    """One digest of a pass's output fields, their bytes on the host."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in out:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+class _DeviceBytes:
+    """``size`` bytes of device memory at ``addr``, for ``torch.as_tensor``
+    (``__cuda_array_interface__``: no copy, no allocation)."""
+
+    def __init__(self, addr: int, size: int):
+        self.__cuda_array_interface__ = {"shape": (size,), "typestr": "|u1",
+                                         "data": (addr, False), "strides": None, "version": 3}
+
+
+def _fill_free_pool_blocks(dev) -> int:
+    """Fill every free block of ``dev``'s graph pool with 0xFF bytes (NaN
+    in every float type) where it lies, on the current stream, after the
+    last replay; returns the bytes filled."""
     import torch
 
-    from apdmvs_tpu_torch import bench
+    from apdmvs_tpu_torch import compiled
 
-    row, out = bench.measure(device=dev)
-    if not (row["value"] > 0 and row["batched_maps_per_sec"] > 0
-            and bool(torch.isfinite(out.depth).all())):
-        raise AssertionError(f"bench gives {row['value']} depth-maps/s or non-finite depths")
-    log(f"bench: {row['value']:.4f} depth-maps/s (flagship pass {row['pass_ms']:.2f} ms); "
-        f"batched_maps_per_sec {row['batched_maps_per_sec']:.4f} ({row['batched_problems']} "
-        f"problems, {row['batched_pinned']} sets pinned, batch pass {row['batched_ms']:.2f} ms, "
-        f"pinned sets built in {row['batched_prebuild_ms']:.2f} ms)")
-    print(json.dumps(row), flush=True)
+    pool = tuple(compiled._DEVICES[dev].pool.id)
+    filled = 0
+    for seg in torch.cuda.memory_snapshot():
+        if seg["device"] != dev.index or tuple(seg.get("segment_pool_id", ())) != pool:
+            continue
+        addr = seg["address"]
+        for b in seg["blocks"]:
+            if b["state"] == "inactive":
+                torch.as_tensor(_DeviceBytes(addr, b["size"]), device=dev).fill_(255)
+                filled += b["size"]
+            addr += b["size"]
+    return filled
+
+
+def _scene_twice(cell, seed, dev):
+    """A scene of ``cell`` (its seed's render, ``run_scene`` as
+    ``mvsbench.run`` calls it) run twice in this process: the second time
+    with the graph pool's free blocks NaN-filled before every pass. Returns
+    the line's figures; raises where a view-pass of the second scene
+    differs from the first's, a key is captured again, the state files or
+    the cloud differ, or a device constant of the weak machinery lies in
+    the graph pool, whose blocks the graphs write between their
+    replays."""
+    import numpy as np
+    import torch
+
+    from apdmvs_tpu_torch import compiled, pipeline, scene, weak
+    from mvsbench import catalog, scenes
+
+    wl = catalog.workload(catalog.cell_entry(catalog.benchmark(), cell)["traffic"])
+    cfg = catalog.config(wl["config"])
+    folder = os.path.join(ROOT, "_smoke_pool")
+    shutil.rmtree(folder, ignore_errors=True)
+    scenes.write_mvsnet(folder, scenes.make_scene(cfg, wl, seed, dev), cfg)
+    torch.cuda.empty_cache()
+    kwargs = dict(seed=int(scenes.sub_seed(seed, 3).generate_state(1)[0]), device=dev,
+                  fusion_variant=wl["run"]["fusion_variant"], verbose=False)
+    kwargs.update(cfg.get("run", {}))
+    real = pipeline.patchmatch_pass
+    digests, filled, outputs = [[], []], [], []
+
+    def watched(*args, **kw):
+        if fill:
+            filled.append(_fill_free_pool_blocks(dev))
+        out = real(*args, **kw)
+        digests[run].append(_pass_digest(out))
+        return out
+
+    try:
+        pipeline.patchmatch_pass = watched
+        for run, fill in ((0, False), (1, True)):
+            shutil.rmtree(os.path.join(folder, "APD"), ignore_errors=True)
+            captures = len(compiled.captures)
+            scene.run_scene(folder, **kwargs)
+            torch.cuda.synchronize()
+            with open(os.path.join(folder, "APD", "APD.ply"), "rb") as f:
+                outputs.append((_state_files(folder), f.read()))
+            if run:
+                recaptured = len(compiled.captures) - captures
+        pool_gb = compiled.pool_bytes(dev) / 1e9
+        pool = tuple(compiled._DEVICES[dev].pool.id)
+        segments = [(g["address"], g["total_size"]) for g in torch.cuda.memory_snapshot()
+                    if tuple(g.get("segment_pool_id", ())) == pool]
+        in_pool = sorted(str(k[0]) for k, c in weak._DEVICE_CONSTANTS.items()
+                         if c.device == dev
+                         and any(a <= c.data_ptr() < a + n for a, n in segments))
+    finally:
+        pipeline.patchmatch_pass = real
+        shutil.rmtree(folder, ignore_errors=True)
+    differ = [i for i, (a, b) in enumerate(zip(*digests)) if a != b]
+    row = {"cell": cell, "view_passes": len(digests[0]), "differ": differ,
+           "recaptured": recaptured, "states_equal": outputs[0][0] == outputs[1][0],
+           "ply_equal": outputs[0][1] == outputs[1][1], "pool_gb": pool_gb,
+           "constants_in_pool": in_pool,
+           "filled_gb_median": float(np.median(filled)) / 1e9}
+    log(f"pool {cell} (seed {seed}): a second scene with the pool's free blocks NaN-filled "
+        f"before every pass ({row['filled_gb_median']:.3f} GB a pass, median): "
+        f"{len(differ)} of {row['view_passes']} view-passes differ from the first scene's "
+        f"{differ} (tol: 0), {recaptured} keys captured again (tol: 0), state files "
+        f"byte-equal {row['states_equal']}, cloud byte-equal {row['ply_equal']}; the weak "
+        f"machinery's device constants in the graph pool: {in_pool} (tol: none); graph pool "
+        f"{pool_gb:.3f} GB")
+    if differ or recaptured or in_pool or not (row["states_equal"] and row["ply_equal"]):
+        raise AssertionError(f"pool {cell}: a replay read memory that its graph did not write")
     return row
+
+
+def phase_pool(dev):
+    """Phase 10 (see the module docstring)."""
+    from apdmvs_tpu_torch import compiled
+
+    t_phase = time.perf_counter()
+    compiled.drop()
+    rows = []
+    for cell, seed in POOL_CELLS:
+        rows.append(_scene_twice(cell, seed, dev))
+        compiled.drop()
+    log(f"pool: phase took {time.perf_counter() - t_phase:.1f} s")
+    print(json.dumps({"pool": rows}), flush=True)
+    return rows
 
 
 def _log_batched_passes(tag, run):
@@ -2994,7 +3109,8 @@ def main() -> int:
         phase_fusion(dev, folder_2r, planes_2r)
         torch.cuda.empty_cache()
         phase_quality(dev)
-        phase_bench(dev)
+        torch.cuda.empty_cache()
+        phase_pool(dev)
         torch.cuda.empty_cache()
         walls["batched"], walls["batched two rounds"], states = phase_batched(dev, inputs,
                                                                               walls)

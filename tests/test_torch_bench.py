@@ -1,42 +1,17 @@
-"""The port's benchmark (``python -m apdmvs_tpu_torch.bench``) on the CPU at
-64x48, one repeat, one batched problem: one JSON line with the benchmark's
-keys (the batched row's included), the flagship
-pass's setup as bench.py sets it up (weak box, worklist capacity, sample
-count), and no run on a machine without a card unless the CPU is asked
-for."""
-
-import json
+"""The flagship fixture (``apdmvs_tpu_torch.bench``) on the CPU at 64x48:
+the flagship pass's setup as the repository's ``bench.py`` sets it up (weak
+box, worklist capacity), the one definition that the tools take; and
+``chip_smoke.py``'s kernel bounds, which are the benchmark's yardstick
+(``mvsbench/roofline.py``)."""
 
 import numpy as np
-import pytest
 import torch
 
-import bench as jax_bench
+import chip_smoke
 from apdmvs_tpu.scene import _bucket_capacity as jax_bucket_capacity
 from apdmvs_tpu_torch import bench, trace_pass
 from apdmvs_tpu_torch.params import PixelState
-
-KEYS = {"metric", "value", "unit", "min", "spread_pct", "pass_ms", "image_build_ms",
-        "depth_build_ms", "device", "batched_maps_per_sec", "batched_problems",
-        "batched_pinned", "batched_ms", "batched_prebuild_ms"}
-
-
-def test_bench_prints_one_json_line(capsys):
-    torch.set_num_threads(2)
-    bench.main(["--device", "cpu", "--width", "64", "--height", "48", "--repeats", "1",
-                "--batched-problems", "1"])
-    out = capsys.readouterr().out.strip().splitlines()
-    assert len(out) == 1
-    row = json.loads(out[0])
-    assert set(row) == KEYS
-    assert row["metric"] == "depth_maps_per_sec" and row["device"].startswith("cpu")
-    assert row["value"] > 0 and row["min"] == row["value"] and row["spread_pct"] == 0.0
-    build = row["image_build_ms"] / 4 + row["depth_build_ms"]
-    assert row["value"] == pytest.approx(1e3 / (build + row["pass_ms"]))
-    # the batched row (one copy of the flagship problem here, its set pinned)
-    assert (row["batched_problems"], row["batched_pinned"]) == (1, 1)
-    assert row["batched_maps_per_sec"] == pytest.approx(
-        1e3 / (row["batched_ms"] + row["batched_prebuild_ms"] / 4))
+from mvsbench import roofline
 
 
 def test_flagship_state_is_bench_py_s():
@@ -54,17 +29,25 @@ def test_flagship_state_is_bench_py_s():
     cfg = bench.FLAGSHIP_CFG
     assert (cfg.state.name, cfg.geom_consistency, cfg.use_APD, cfg.max_iterations,
             cfg.weak_peak_radius) == ("REFINE_ITER", True, True, 3, 4)
-    # one definition: the trace takes its flagship pass from the benchmark
+    # one definition: the trace takes its flagship pass from the fixture
     assert trace_pass.flagship_state is bench.flagship_state
     assert trace_pass.flagship_pass is bench.flagship_pass
 
 
-def test_sample_count_is_bench_py_s():
-    for args in ((480, 640, 5, 3, 0.0625), (48, 64, 5, 3, 0.0625), (120, 160, 4, 2, 0.1)):
-        assert bench.required_ncc_samples(*args) == jax_bench.required_ncc_samples(*args)
-
-
-def test_bench_refuses_without_a_card(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="cuda"):
-        bench.main(["--width", "64", "--height", "48", "--repeats", "1"])
+def test_chip_smoke_bounds_are_the_benchmark_s():
+    # the main path's shapes (C = 9 fields over 4 views, C = 8 for H4) and a
+    # small grid where the operations, not the bytes, bound H2
+    for C, views, Hp, Wp, touched in ((9, 4, 480, 640, 3_100_000), (8, 4, 480, 640, 2_457_600),
+                                      (3, 1, 16, 128, 20_000)):
+        planes_cf = torch.zeros((C, 4, Hp, Wp))
+        assert chip_smoke.h2_bound_views(planes_cf, views, touched) == roofline.bound(
+            *roofline.h2_work(C, views, Hp, Wp, touched))
+        assert chip_smoke.h4_bound_views(planes_cf, views, touched) == roofline.bound(
+            *roofline.h4_work(C, views, Hp, Wp, touched))
+    assert {b for _, b in (chip_smoke.h2_bound_views(torch.zeros((3, 4, 16, 128)), 1, 20_000),
+                           chip_smoke.h2_bound_views(torch.zeros((9, 4, 480, 640)), 4, 10 ** 9))} \
+        == {"operations", "bytes"}
+    # no peak, operation count or bound of its own beside the benchmark's
+    assert chip_smoke.bound is roofline.bound and chip_smoke.OPS_H1 == roofline.OPS_H1
+    assert not any(hasattr(chip_smoke, n) for n in (
+        "MEM_BYTES_PER_S", "F32_FLOPS", "OPS_H2_SAMPLE", "OPS_H2_OUT", "OPS_H2_REF", "OPS_H4"))

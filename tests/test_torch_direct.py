@@ -9,8 +9,7 @@ compiled (jax.jit), as its pass runs them.
 
 Tolerances. Evaluators (``ncc_cost_view`` in grid mode and in point mode
 with leading batch dims, ``geom_cost_view``, ``cost_vector`` and
-``geom_cost_vector`` without volumes, ``point_cost_volume`` /
-``fetch_cost``, the direct and the point-volume branch of
+``geom_cost_vector`` without volumes, the direct branch of
 ``deformed_cost_vector``): costs within 1e-4 on >= 99.9 % of entries
 (both sides round the warp, the bilinear weights and the moments in
 float32, in other orders), out-of-bounds masks equal. Passes (FIRST_INIT,
@@ -31,11 +30,9 @@ import torch
 
 from _torch_parity import DMAX, DMIN, JaxDraws, flat_ring_scene, t
 from apdmvs_tpu import ncc as jncc, pipeline as jpipe, weak as jweak
-from apdmvs_tpu.ops import cost_volume as jcv
 from apdmvs_tpu.params import PassConfig, PixelState, RunState
 from apdmvs_tpu.scene import _bucket_capacity
 from apdmvs_tpu_torch import convert, ncc as tncc, pipeline as tpipe, weak as tweak
-from apdmvs_tpu_torch.ops import cost_volume as tcv
 
 torch.set_num_threads(2)
 
@@ -166,43 +163,11 @@ def test_geom_cost_view_and_vectors_match(sc, mode):
            name=f"cost_vector {mode}")
 
 
-def test_point_cost_volume_and_fetch_cost_match(sc):
-    """The cost volumes read point by point, the oob masks equal; and
-    fetch_cost on slices in, below and above the grid."""
-    jvs = jncc.build_image_volume_set(jnp.asarray(sc["images"]), sc["jcams"], DMIN, DMAX,
-                                      num_slices=K)
-    jctx = sc["jctx"]._replace(volumes=jvs)
-    tctx = tncc.make_context(sc["tc"], t(sc["sv"]), H, W, convert.to_volume_set(jvs))
-    planes = _worklist_planes(sc)
-    xy = np.asarray(sc["jxy"])
-    a = np.asarray(sc["ja"].coords)[:, 1:]
-    for which, pl, xs, ys in (("C36", planes, xy[:, 0], xy[:, 1]),
-                              ("C9", planes[:, :, None], a[..., 0], a[..., 1])):
-        wc, wo = jax.jit(jncc.point_cost_volume, static_argnames=("which",))(
-            jctx, jnp.asarray(pl), jnp.asarray(xs), jnp.asarray(ys), which=which)
-        gc, go = tncc.point_cost_volume(tctx, t(pl), t(xs), t(ys), which)
-        np.testing.assert_array_equal(go.numpy(), np.asarray(wo))
-        _close(gc.numpy(), wc, name=f"point_cost_volume {which}")
-    rs = np.random.RandomState(5)
-    k = rs.uniform(-3, K + 3, xy.shape[0]).astype(np.float32)
-    k[:4] = [0.0, K - 1.0, -1e9, 1e9]
-    want = jcv.fetch_cost(jvs.C36[0], jnp.asarray(xy[:, 0]), jnp.asarray(xy[:, 1]),
-                          jnp.asarray(k), 4, 4)
-    got = tcv.fetch_cost(convert.tensor(jvs.C36[0]), t(xy[:, 0]), t(xy[:, 1]), t(k), 4, 4)
-    _close(got.numpy(), want, tol=1e-6, frac=1.0, name="fetch_cost")
-
-
-@pytest.mark.parametrize("branch", ["direct", "point volume"])
+@pytest.mark.parametrize("branch", ["direct"])
 def test_deformed_cost_vector_matches(sc, branch):
-    """Both branches without resident columns: the direct warp (no
-    volumes) and the cost volumes read point by point (C36 and C9, no
-    WeakCols)."""
+    """The branch without resident columns: the direct warp (no
+    volumes)."""
     jctx, tctx = sc["jctx"], sc["tctx"]
-    if branch == "point volume":
-        jvs = jncc.build_image_volume_set(jnp.asarray(sc["images"]), sc["jcams"], DMIN, DMAX,
-                                          num_slices=K)
-        jctx = jctx._replace(volumes=jvs)
-        tctx = tncc.make_context(sc["tc"], t(sc["sv"]), H, W, convert.to_volume_set(jvs))
     planes = _worklist_planes(sc)
     sel = np.broadcast_to(sc["sv"][:, None, None], (V, H, W)).copy()
     sel[2, 40:60] = False  # views unselected at some anchors
@@ -212,6 +177,31 @@ def test_deformed_cost_vector_matches(sc, branch):
                                      t(sel), cfg=sc["cfg"])
     _close(got.numpy(), want, name=f"deformed {branch}")
     assert want.shape == (V, 3, sc["cap"])
+
+
+def test_volume_context_refuses_point_evaluations(sc):
+    """A volume-path context evaluates the weak machinery's points only
+    through resident columns: with C36 and C9 in the set and no WeakCols,
+    point-mode NCC (the direct evaluator, which needs images) and the
+    deformed cost raise rather than read the cost volumes point by
+    point."""
+    vs = tncc.build_image_volume_set(t(sc["images"]), sc["tc"], DMIN, DMAX, num_slices=16)
+    assert vs.C36 is not None and vs.C9 is not None
+    ctx = tncc.make_context(sc["tc"], t(sc["sv"]), H, W, vs)
+    planes = t(_worklist_planes(sc))
+    xy = convert.tensor(sc["jxy"])
+    wx, wy = xy[:, 0].float(), xy[:, 1].float()
+    for r, inc in ((5, 2), (5, 5)):
+        with pytest.raises(ValueError, match="images"):
+            tncc.cost_vector(ctx, planes, r, inc, xs=wx, ys=wy)
+    sel = torch.ones((V, H, W), dtype=torch.bool)
+    with pytest.raises(ValueError, match="resident columns"):
+        tweak.deformed_cost_vector(ctx, xy, planes, sc["ta"], sel, cfg=sc["cfg"])
+    # the same calls without volumes warp directly
+    want = (V,) + tuple(planes.shape[:-1])
+    assert tncc.cost_vector(sc["tctx"], planes, 5, 2, xs=wx, ys=wy).shape == want
+    assert tweak.deformed_cost_vector(sc["tctx"], xy, planes, sc["ta"], sel,
+                                      cfg=sc["cfg"]).shape == want
 
 
 PASSES = {

@@ -210,8 +210,6 @@ def test_spaced_set_refuses_point_lookups(volumes):
     ctx = ncc.make_context(cams, torch.arange(V) > 0, H, W, sp)
     plane = torch.tensor([[0.0, 0.0, -1.0, 4.0]])
     xy = torch.tensor([3])
-    with pytest.raises(ValueError, match="resident columns"):
-        ncc.point_cost_volume(ctx, plane, xy, xy, "C36")
     with pytest.raises(ValueError, match="full grids only"):
         ncc.cost_vector(ctx, plane, 5, 2, xs=xy.float(), ys=xy.float())
     with pytest.raises(ValueError, match="slab 0 must live"):

@@ -259,3 +259,30 @@ def test_propagate_weak_sweep_matches(sc):
     # the sweep changed weak pixels (and only them)
     moved = np.any(got.planes.numpy() != np.asarray(sc["jst"].planes), axis=-1)
     assert moved[weak].sum() > 100 and not moved[~weak].any()
+
+
+def test_probe_constants_are_all_the_probe_stage_makes(monkeypatch):
+    """The probe stage's device constants come from
+    ``weak.probe_constants``, which a compiled pass calls before its
+    warm-up, so that no constant is made inside the graph pool: made once
+    with the reference's directions and radii, the same tensors on every
+    later call, and the probe stage reads them and makes no other."""
+    from apdmvs_tpu_torch import rng
+
+    monkeypatch.setattr(tweak, "_DEVICE_CONSTANTS", {})
+    rotate_time, w, h = 2, 96, 64
+    base, radii = tweak.probe_constants(rotate_time, w, h, "cpu")
+    np.testing.assert_array_equal(base.numpy(), np.asarray(jweak._base_directions(rotate_time)))
+    np.testing.assert_array_equal(
+        radii.numpy(), np.repeat(np.asarray(tweak.radius_schedule(w, h), np.float32),
+                                 tweak._JITTERS_PER_RADIUS))
+    made = dict(tweak._DEVICE_CONSTANTS)
+    again = tweak.probe_constants(rotate_time, w, h, "cpu")
+    assert again[0] is base and again[1] is radii
+    ps = torch.full((h, w), int(PixelState.STRONG), dtype=torch.uint8)
+    ps[20:40, 30:60] = int(PixelState.WEAK)
+    xy = tweak.compact_weak_pixels(ps, 1024)
+    found, _, _ = tweak.probe_strong_points(ps, xy, rng.TorchDraws(0, h, w, "cpu"), rotate_time)
+    assert bool(found.any())
+    assert tweak._DEVICE_CONSTANTS.keys() == made.keys()
+    assert all(tweak._DEVICE_CONSTANTS[k] is v for k, v in made.items())
